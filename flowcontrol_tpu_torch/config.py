@@ -7,9 +7,10 @@ Newton) always runs in float64 numpy/scipy: it is one-time work and
 accuracy matters.
 
 The device hot loop (time stepping) runs on ONE explicit ``torch.device``
-chosen by the caller (``ParamSolver.device``); nothing here looks for a card
-or moves work elsewhere. Its dtype is float64 on the CPU, where the tests
-hold the port against the reference to round-off, and float32 on CUDA;
+(``ParamSolver.device``), the card unless the caller asks for the CPU;
+nothing here moves work elsewhere, and asking for a card where there is none
+raises (:func:`require_device`). Its dtype is float64 on the CPU, where the
+tests hold the port against the reference to round-off, and float32 on CUDA;
 ``ParamSolver.precision`` overrides either.
 
 Matmuls on CUDA stay in full float32: TF32 keeps a 10-bit mantissa, the
@@ -46,6 +47,18 @@ def device_dtype(device: torch.device | str, precision: str = "auto") -> torch.d
     if precision != "auto":
         raise ValueError(f"precision must be 'auto', 'f32' or 'f64', got {precision!r}")
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64
+
+
+def require_device(device: torch.device | str) -> torch.device:
+    """``device`` as a ``torch.device``; raises ``RuntimeError`` for a CUDA
+    device where torch sees no card (it never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"the hot loop runs on {device} (the default device), but torch sees "
+            "no CUDA device here; pass device='cpu' to run on the CPU"
+        )
+    return device
 
 
 def device_memory_budget_bytes(device: torch.device | str) -> int:

@@ -29,7 +29,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
-from flowcontrol_tpu_torch.config import device_dtype
+from flowcontrol_tpu_torch.config import device_dtype, require_device
 from flowcontrol_tpu_torch.core import flowsolverparameters as fsp
 from flowcontrol_tpu_torch.core.actuator import ACTUATOR_TYPE
 from flowcontrol_tpu_torch.core.exporter import FlowExporter
@@ -42,7 +42,7 @@ from flowcontrol_tpu_torch.core.flowfield import (
 from flowcontrol_tpu_torch.core.nsforms import NSForms
 from flowcontrol_tpu_torch.core.sensor import sensor_matrix
 from flowcontrol_tpu_torch.core.steadystate import SteadyStateSolver
-from flowcontrol_tpu_torch.core.stepper import Stepper, dense_lu_max_dofs_device
+from flowcontrol_tpu_torch.core.stepper import Stepper
 from flowcontrol_tpu_torch.fem.assembly import (
     CellGeometry,
     load_vector,
@@ -82,6 +82,8 @@ class FlowSolver(ABC):
             params_flow, params_time, params_save, params_solver,
             params_mesh, params_control, params_ic, params_restart,
         )
+        # fail before the host set-up when the default card is absent
+        require_device(params_solver.device)
         self.params_flow = params_flow
         self.params_time = params_time
         self.params_save = params_save
@@ -446,24 +448,16 @@ class FlowSolver(ABC):
         return torch.device(self.params_solver.device)
 
     def _resolve_backend(self) -> str:
-        """'auto': dense_lu up to DENSE_LU_MAX_DOFS anywhere; on CUDA also
-        while its f64 factorization fits the card (dense_lu_max_dofs_device);
-        the host sparse LU on the CPU beyond. A CUDA run past the dense
-        range needs the multifrontal solve, which is not ported yet: it
-        raises rather than leave the device."""
+        """'auto': dense_lu up to DENSE_LU_MAX_DOFS anywhere and at every
+        size on CUDA, where the Stepper takes the dense LU while its f64
+        factorization fits the card (``dense_lu_max_dofs_device``) and the
+        multifrontal solve past that; the host sparse LU on the CPU beyond
+        DENSE_LU_MAX_DOFS (the reference's rule, flowsolver.py:581-598)."""
         b = self.params_solver.solver_backend
         if b != "auto":
             return b
-        n = self.space.n_dofs
-        if n <= DENSE_LU_MAX_DOFS:
+        if self.space.n_dofs <= DENSE_LU_MAX_DOFS or self.device.type == "cuda":
             return "dense_lu"
-        if self.device.type == "cuda":
-            if n <= dense_lu_max_dofs_device(self.device):
-                return "dense_lu"
-            raise NotImplementedError(
-                f"{n} dofs exceed the dense LU's memory on {self.device}; the "
-                "multifrontal solve for this size is not ported yet"
-            )
         return "host_lu"
 
     def _resolve_dtype(self) -> torch.dtype:
@@ -487,6 +481,7 @@ class FlowSolver(ABC):
             backend=self._resolve_backend(),
             dtype=self._resolve_dtype(),
             device=self.device,
+            **self.params_solver.stepper_options,
         )
         up_n = np.concatenate([self.fields.u_n.reshape(-1), self.fields.p_n])
         up_nn = np.concatenate([self.fields.u_nn.reshape(-1), self.fields.p_n])

@@ -6,9 +6,10 @@ API-parity port of the reference's 8 Param* dataclasses
 - ``ParamMesh`` may carry an in-memory ``Mesh2D`` instead of (or in addition
   to) an XDMF path — mesh generation is a first-class host-side step here.
 - ``ParamSolver`` gains device-solver knobs: ``device`` (a torch device
-  string, always explicit), ``solver_backend`` ('auto' | 'host_lu' |
-  'dense_lu') and ``precision`` ('auto' | 'f32' | 'f64') controlling the
-  device hot loop.
+  string, ``'cuda'`` unless the caller asks for ``'cpu'``),
+  ``solver_backend`` ('auto' | 'host_lu' | 'dense_lu'), ``precision``
+  ('auto' | 'f32' | 'f64') and ``stepper_options`` (Stepper fields passed
+  through) controlling the device hot loop.
 """
 
 from __future__ import annotations
@@ -114,10 +115,14 @@ class ParamSolver(ParamFlowSolver):
     is_eq_nonlinear: bool = True
     time_scheme: str = "bdf"  # 'bdf' (BDF1→BDF2 ramp) or 'cn'
     # device additions:
-    device: str = "cpu"  # torch device of the hot loop, e.g. 'cuda'
+    device: str = "cuda"  # torch device of the hot loop; 'cpu' only when asked for
     solver_backend: str = "auto"  # 'auto' | 'host_lu' | 'dense_lu'
     precision: str = "auto"  # 'auto' (f64 on CPU, f32 on CUDA) | 'f32' | 'f64'
     pin_pressure: bool | None = None  # None = auto-detect enclosed flows
+    # extra Stepper keyword overrides — any core.stepper.Stepper dataclass
+    # field, e.g. force_substructure=True (the multifrontal solve even
+    # where the dense LU fits)
+    stepper_options: dict = field(default_factory=dict)
 
 
 @dataclass

@@ -23,8 +23,11 @@ Not transcribed, because they exist for the TPU: the banded mass apply
 (``ops/banded.py``; gathers are slow on a TPU, a CSR SpMV is not slow on a
 GPU), the window-blocked N(u) (``ops/cellwindows.py``; K1 gathers
 directly) and the hot dof order (permutes are costly on a TPU): the port
-keeps mesh order everywhere. The multifrontal, substructured and Krylov
-solves and batched/closed-loop rollouts are later slices (ROADMAP.md).
+keeps mesh order everywhere. The direct solve is the dense LU while its f64
+factorization fits the device, else the multifrontal solve
+(``solvers/multifrontal.py``, kernels K2 and P1 on CUDA). The substructured
+and Krylov solves and batched/closed-loop rollouts are later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,11 +40,13 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from flowcontrol_tpu_torch.config import device_memory_budget_bytes
+from flowcontrol_tpu_torch.config import device_memory_budget_bytes, require_device
 from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
 from flowcontrol_tpu_torch.fem.bc import BCSet
 from flowcontrol_tpu_torch.ops.nl import NLTables, nonlinear_convection
+from flowcontrol_tpu_torch.parallel.dofsharding import mixed_dof_coordinates
 from flowcontrol_tpu_torch.solvers.direct import DeviceDenseLU, HostSparseLU
+from flowcontrol_tpu_torch.solvers.multifrontal import MultifrontalLU
 
 logger = logging.getLogger(__name__)
 
@@ -109,8 +114,8 @@ def dense_lu_max_dofs_device(device) -> int:
     """Largest dof count the dense LU takes on ``device``: the factor is
     computed in f64, so A and LU together (16 n^2 bytes) must fit the
     memory budget. On an 80 GB card that is about 69k dofs, above the
-    56,383-dof default cylinder mesh; the multifrontal solve for larger
-    meshes is not ported yet."""
+    56,383-dof default cylinder mesh; past it the Stepper takes the
+    multifrontal solve."""
     return int((device_memory_budget_bytes(device) / 16) ** 0.5)
 
 
@@ -127,7 +132,10 @@ class Stepper:
     scheme: str = "bdf"  # 'bdf' or 'cn'
     backend: str = "dense_lu"  # 'dense_lu' | 'host_lu'
     dtype: torch.dtype = torch.float64
-    device: Any = "cpu"
+    device: Any = "cuda"  # the CPU only when asked for
+    #: take the multifrontal solve even where the dense LU fits (the dense
+    #: LU's kinds become 'multifrontal'; the borrowed first step stays)
+    force_substructure: bool = False
     #: the reference's size rule for its two dense kinds: 'lapack' up to
     #: this size, 'block' above. On the port both are the same torch.linalg
     #: LU; the label is kept so the selection reads as the reference's.
@@ -155,12 +163,12 @@ class Stepper:
             )
         if dev_t.type == "cuda" and forms.is_nonlinear and dt != torch.float32:
             raise TypeError(f"N(u) kernel K1 takes float32 only, got {dt} on {dev_t}")
-        if self.backend == "dense_lu" and n > dense_lu_max_dofs_device(dev_t):
-            raise MemoryError(
-                f"the f64 dense factorization of {n} dofs needs "
-                f"{16 * n * n / 1e9:.1f} GB, over the memory budget of {dev_t}; "
-                "the multifrontal solve for this size is not ported yet"
-            )
+        require_device(dev_t)
+        dense = (
+            self.backend == "dense_lu"
+            and not self.force_substructure
+            and n <= dense_lu_max_dofs_device(dev_t)
+        )
         u0 = self.u0_nodes
         self.n_act = self.force_cols.shape[0]
         self.ns = self.c_rows.shape[0]
@@ -182,6 +190,9 @@ class Stepper:
         d: dict = {"lift_act": [], "lift_static": [], "a_bc": {}}
         self._solvers: list = []
         self._solver_kinds: list = []
+        #: refinement sweeps per order index (the multifrontal factor's
+        #: recommendation in f32; none for the dense LU and in f64)
+        self._refine: dict = {}
         self._borrow_first = (
             self.backend == "dense_lu"
             and orders == (1, 2)
@@ -203,12 +214,23 @@ class Stepper:
                 self._solvers.append(None)
                 self._solver_kinds.append("borrowed")
                 continue
-            if self.backend == "dense_lu":
+            if dense:
                 # computed in f64 and stored in dt: rounding-limited, so no
                 # refinement sweep (reference: field err 2.2e-4 with 0 sweeps
                 # vs 1.8e-4 with 1, core/stepper.py:535-538)
                 self._solvers.append(DeviceDenseLU(a_bc, dev_t, store_dtype=dt))
                 self._solver_kinds.append("lapack" if n <= self.LAPACK_LU_MAX_N else "block")
+            elif self.backend == "dense_lu":
+                # past the dense range: host-f64 multifrontal factors stored
+                # in dt; one f32 refinement sweep when the measured per-solve
+                # error leaves the zero-sweep class (reference:
+                # core/stepper.py:428-458, 530-544)
+                mf = MultifrontalLU(a_bc, mixed_dof_coordinates(space), dev_t, dtype=dt)
+                self._solvers.append(mf)
+                self._solver_kinds.append("multifrontal")
+                if dt == torch.float32 and mf.recommended_refine:
+                    self._refine[self._order_idx[order]] = mf.recommended_refine
+                    d["a_bc"][self._order_idx[order]] = csr_to_device(a_bc, dev_t, dt)
             else:
                 self._solvers.append(HostSparseLU(a_bc))
                 self._solver_kinds.append("host")
@@ -285,7 +307,10 @@ class Stepper:
             for _ in range(self.BORROW_ITERS):
                 x = x + self._solve_once(oi2, rhs - torch.mv(a1, x))
             return x
-        return self._solve_once(oi, rhs)
+        x = self._solve_once(oi, rhs)
+        for _ in range(self._refine.get(oi, 0)):
+            x = x + self._solve_once(oi, rhs - torch.mv(self._dev["a_bc"][oi], x))
+        return x
 
     def _order_of(self, carry: StepCarry):
         if self.scheme == "cn":

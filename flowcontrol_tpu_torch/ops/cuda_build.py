@@ -91,3 +91,15 @@ class CudaLibrary:
             self._declare(lib)
             self._lib = lib
         return self._lib
+
+
+def build_all(libraries) -> None:
+    """Build and load several libraries at once: one nvcc process per
+    source, all started together (each waits in ``subprocess.run``, which
+    releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    libraries = list(libraries)
+    with ThreadPoolExecutor(max_workers=max(1, len(libraries))) as pool:
+        for f in [pool.submit(lib.get) for lib in libraries]:
+            f.result()

@@ -12,6 +12,11 @@ package, so it also runs on a GPU machine without them:
   float64 CPU run from the same base flow: y within 5e-4 relative of the
   f64 run's peak and the 10-step field within 5e-4, the f32 tolerances of
   the reference's own f32 path.
+- Kernels K2 and P1 (``csrc/mf_sweep.cu``) against their plain torch
+  versions at batch 1 and 4 (K2 also at 2 and 9, its other instances and a
+  second pass over a; at stage shapes that are multiples of 8 and one that
+  is not; P1 on a random inbox table): relative error <= 1e-5,
+  one counted launch per call; a CUDA tensor they do not take is refused.
 """
 
 import numpy as np
@@ -22,6 +27,12 @@ from flowcontrol_tpu_torch.fem.assembly import CellGeometry
 from flowcontrol_tpu_torch.mesh.dofmap import TaylorHoodSpace
 from flowcontrol_tpu_torch.mesh.generation import cylinder_mesh
 from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
+from flowcontrol_tpu_torch.ops.mf_matvec import (
+    gather_sum_sub,
+    gather_sum_sub_plain,
+    stack_matvec,
+    stack_matvec_plain,
+)
 from flowcontrol_tpu_torch.ops.nl import (
     NLTables,
     nonlinear_convection,
@@ -80,3 +91,43 @@ def test_torch_cuda_cylinder_f32_against_cpu_f64(cuda, tmp_path):
     assert np.abs(y32 - y64).max() <= 5e-4 * np.abs(y64).max()
     err = np.linalg.norm(gpu.fields.up_ - ref.fields.up_) / np.linalg.norm(ref.fields.up_)
     assert err <= 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 4, 9])
+@pytest.mark.parametrize("m,p,q", [(6, 280, 744), (1, 1488, 1024), (3, 8, 216), (2, 37, 13)])
+def test_torch_cuda_k2_matches_plain(cuda, batch, m, p, q):
+    rng = np.random.default_rng(m * p + q)
+    a = torch.as_tensor(rng.standard_normal((m, p, q)), dtype=torch.float32, device=cuda)
+    # v as the sweep passes it: a strided row view of a wider work vector
+    x = torch.as_tensor(rng.standard_normal((batch, m * q + 9)), dtype=torch.float32,
+                        device=cuda)
+    v = x[:, 4: 4 + m * q].view(batch, m, q)
+    before = stack_matvec.launches
+    got = stack_matvec(a, v)
+    ref = stack_matvec_plain(a, v)
+    torch.cuda.synchronize()
+    assert stack_matvec.launches == before + 1
+    assert got.shape == (batch, m, p)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+    with pytest.raises(ValueError):
+        stack_matvec(a.double(), v.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4])
+def test_torch_cuda_p1_matches_plain(cuda, batch):
+    rng = np.random.default_rng(batch)
+    n_buf, kmax, w = 3001, 5, 700
+    buf = torch.as_tensor(rng.standard_normal((batch, n_buf)), dtype=torch.float32, device=cuda)
+    buf[:, 0] = 0.0
+    t = torch.as_tensor(rng.integers(0, n_buf, (kmax, w)), dtype=torch.int32, device=cuda)
+    xe = torch.as_tensor(rng.standard_normal((batch, w)), dtype=torch.float32, device=cuda)
+    before = gather_sum_sub.launches
+    got = gather_sum_sub(buf, t, xe)
+    ref = gather_sum_sub_plain(buf, t, xe)
+    torch.cuda.synchronize()
+    assert gather_sum_sub.launches == before + 1
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+    with pytest.raises(ValueError):
+        gather_sum_sub(buf, t.long(), xe)

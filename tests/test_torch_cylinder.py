@@ -109,9 +109,13 @@ def test_torch_cylinder_refuses_unported_io(tmp_path):
     ("host_lu", "auto", ValueError),  # the CPU validation backend
     ("dense_lu", "f64", TypeError),  # K1 takes float32 only
 ])
-def test_torch_cylinder_refuses_off_device_setups(runs, tmp_path, backend, precision, error):
+def test_torch_cylinder_refuses_off_device_setups(runs, tmp_path, monkeypatch, backend,
+                                                  precision, error):
     """On a CUDA device the stepper refuses a host solve and a dtype K1 does
-    not take, before it builds anything on the device."""
+    not take, before it builds anything on the device. (torch is told a card
+    is present, so that these refusals, and not the missing card, are what
+    the stepper reports here.)"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     fj, _, _, _ = runs
     fs = CylT.make_default(mesh=cylinder_mesh_t(**COARSE), path_out=tmp_path, device="cuda",
                            solver_backend=backend, precision=precision)
@@ -127,10 +131,24 @@ def test_torch_cylinder_loads_reference_baseflow_npz(runs, tmp_path):
     fj, _, _, _ = runs
     path = tmp_path / "cylinder_re100.npz"
     np.savez_compressed(path, U0=fj.fields.U0, P0=fj.fields.P0)
-    fs = CylT.make_default(mesh=cylinder_mesh_t(**COARSE), path_out=tmp_path)
+    fs = CylT.make_default(mesh=cylinder_mesh_t(**COARSE), path_out=tmp_path, device="cpu")
     fs.load_steady_state(path)
     assert np.array_equal(fs.fields.U0, fj.fields.U0)
     assert np.array_equal(fs.fields.UP0, fj.fields.UP0)
     assert fs.E0 == fj.E0
     with pytest.raises(ValueError):
         fs._assign_steady_state(fj.fields.U0[:-1], fj.fields.P0)
+
+
+def test_torch_cylinder_default_device_is_the_card(monkeypatch, tmp_path):
+    """With no ``device`` the solver targets the card; where torch sees none,
+    construction raises and says how to ask for the CPU."""
+    from flowcontrol_tpu_torch.core.flowsolverparameters import ParamSolver
+
+    assert ParamSolver().device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = cylinder_mesh_t(**COARSE)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CylT.make_default(mesh=mesh, path_out=tmp_path)
+    fs = CylT.make_default(mesh=mesh, path_out=tmp_path, device="cpu")
+    assert fs.device.type == "cpu"

@@ -41,7 +41,8 @@ def solvers(meshes, tmp_path_factory):
     mj, mt = meshes
     kw = dict(Re=100, num_steps=2, mesh=None, solver_backend="host_lu", precision="f64")
     fj = CylJ.make_default(**{**kw, "mesh": mj}, path_out=tmp_path_factory.mktemp("j"))
-    ft = CylT.make_default(**{**kw, "mesh": mt}, path_out=tmp_path_factory.mktemp("t"))
+    ft = CylT.make_default(**{**kw, "mesh": mt}, path_out=tmp_path_factory.mktemp("t"),
+                           device="cpu")
     return fj, ft
 
 

@@ -7,6 +7,13 @@ carry (the JAX ``init_carry``, passed across with ``carry_from_numpy``), for
 relative. Cases: the BDF1→BDF2 ramp with two factors; the same ramp with
 ``DENSE_TWO_FACTOR_MAX_N`` lowered on both classes, so the first step is the
 "borrowed" Richardson solve against the BDF2 factor; and Crank-Nicolson.
+
+The multifrontal kind (``stepper_options={"force_substructure": True}``)
+is held to the JAX package's the same way over 10 steps (JAX factor cache
+off), with both orders factored and with the borrowed first step; the
+dense LU's size rule hands larger meshes to it ('dense_lu' and 'auto'); and
+its f32 refinement sweep runs when the measured per-solve error calls for
+one.
 """
 
 import numpy as np
@@ -40,9 +47,9 @@ def base_flow(tmp_path_factory):
     return fj.fields.U0.copy(), fj.fields.P0.copy()
 
 
-def _solvers(base_flow, tmp_path, scheme):
+def _solvers(base_flow, tmp_path, scheme, **extra):
     kw = dict(Re=100, num_steps=5, solver_backend="dense_lu", precision="f64",
-              time_scheme=scheme)
+              time_scheme=scheme, **extra)
     fj = CylJ.make_default(mesh=cylinder_mesh_j(**SMALL), path_out=tmp_path / "j", **kw)
     ft = CylT.make_default(mesh=cylinder_mesh_t(**SMALL), path_out=tmp_path / "t",
                            device="cpu", **kw)
@@ -128,18 +135,83 @@ def test_torch_stepper_f32_factor_paths(base_flow, tmp_path):
     assert err <= 1e-4
 
 
-def test_torch_stepper_dense_lu_size_rule(base_flow, tmp_path, monkeypatch):
+@pytest.mark.parametrize("backend", ["dense_lu", "auto"])
+def test_torch_stepper_dense_lu_size_rule(base_flow, tmp_path, monkeypatch, backend):
     """One rule sizes the dense LU: its f64 factorization (A and LU, 16 n^2
-    bytes) fits the budget, or the Stepper refuses the size."""
+    bytes) fits the budget, or the Stepper takes the multifrontal solve
+    ('auto' picks 'dense_lu' at this size and does not raise)."""
     import flowcontrol_tpu_torch.core.stepper as stepper_mod
 
     fs = CylT.make_default(Re=100, mesh=cylinder_mesh_t(**SMALL), path_out=tmp_path,
-                           solver_backend="dense_lu", device="cpu")
+                           solver_backend=backend, device="cpu")
     n = fs.space.n_dofs
     for budget, fits in ((16 * n * n, True), (16 * n * n - 1, False)):
         monkeypatch.setattr(stepper_mod, "device_memory_budget_bytes", lambda device: budget)
         assert (stepper_mod.dense_lu_max_dofs_device("cpu") >= n) == fits
+    assert fs._resolve_backend() == "dense_lu"
     fs._assign_steady_state(*base_flow)
     fs.initialize_time_stepping()
-    with pytest.raises(MemoryError, match="multifrontal"):
-        fs._prepare_systems()
+    fs._prepare_systems()
+    assert fs._stepper._solver_kinds == ["multifrontal", "multifrontal"]
+    y = fs.step(np.array([0.3, -0.2]))
+    assert np.isfinite(y).all()
+
+
+@pytest.mark.parametrize("case", ["bdf", "bdf_borrowed"])
+def test_torch_stepper_multifrontal_matches_jax(base_flow, tmp_path, monkeypatch, case):
+    monkeypatch.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", "off")
+    if case == "bdf_borrowed":
+        monkeypatch.setattr(StepperJ, "DENSE_TWO_FACTOR_MAX_N", 1000)
+        monkeypatch.setattr(StepperT, "DENSE_TWO_FACTOR_MAX_N", 1000)
+    fj, ft = _solvers(base_flow, tmp_path, "bdf", stepper_options={"force_substructure": True})
+    sj, st = fj._stepper, ft._stepper
+    expected = {"bdf": ["multifrontal", "multifrontal"],
+                "bdf_borrowed": ["borrowed", "multifrontal"]}[case]
+    assert sj._solver_kinds == expected and st._solver_kinds == expected
+    assert sj._refine == 0 and st._refine == {}  # f64 factors: no sweep
+
+    cj = {k: np.asarray(v) for k, v in fj._carry._asdict().items()}
+    carry_j, carry_t = fj._carry, carry_from_numpy(cj, "cpu", torch.float64)
+    step_j = sj.compiled_step()
+    for k in range(10):
+        u = np.array([0.3 * np.cos(k), -0.2 + 0.05 * k])
+        carry_j, out_j = step_j(carry_j, u)
+        carry_t, out_t = st.step(carry_t, u)
+        assert _rel(out_t.x, out_j.x) <= TOL, k
+        assert _rel(out_t.y, out_j.y) <= TOL, k
+        assert abs(float(out_t.dE) - float(out_j.dE)) <= TOL * abs(float(out_j.dE)), k
+
+
+def test_torch_stepper_multifrontal_refinement_sweep(base_flow, tmp_path, monkeypatch):
+    """With the zero-sweep ceiling at 0 every f32 multifrontal factor asks
+    for one refinement sweep: each step solves twice and stays within the
+    f32 class of the f64 run."""
+    from flowcontrol_tpu_torch.solvers.multifrontal import MultifrontalLU
+
+    runs, solves = {}, [0]
+    for prec in ("f64", "f32"):
+        if prec == "f32":
+            monkeypatch.setattr(MultifrontalLU, "ZERO_SWEEP_ERR", 0.0)
+            solve = MultifrontalLU.solve
+
+            def counted(self, b):
+                solves[0] += 1
+                return solve(self, b)
+
+            monkeypatch.setattr(MultifrontalLU, "solve", counted)
+        fs = CylT.make_default(Re=100, mesh=cylinder_mesh_t(**SMALL), path_out=tmp_path,
+                               precision=prec, device="cpu",
+                               stepper_options={"force_substructure": True})
+        fs._assign_steady_state(*base_flow)
+        fs.initialize_time_stepping()
+        for k in range(5):
+            fs.step(np.array([0.3, -0.2]))
+        runs[prec] = fs
+    st = runs["f32"]._stepper
+    assert st._solver_kinds == ["multifrontal", "multifrontal"]
+    assert st._refine == {0: 1, 1: 1} and solves[0] == 2 * 5
+    assert st._solvers[1].stages[0].inv.dtype == torch.float32
+    err = np.linalg.norm(runs["f32"].fields.up_ - runs["f64"].fields.up_) / np.linalg.norm(
+        runs["f64"].fields.up_
+    )
+    assert err <= 1e-4

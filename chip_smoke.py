@@ -7,8 +7,9 @@ first CUDA device and fails (non-zero exit, no result line) if any phase
 fails or no CUDA device is present:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
-   the builds of kernel K1 (``csrc/nl_convection.cu``) and kernels K2 and P1
-   (``csrc/mf_sweep.cu``), one nvcc each, started together;
+   the builds of kernel K1 (``csrc/nl_convection.cu``), kernels K2 and P1
+   (``csrc/mf_sweep.cu``) and kernel K3 (``csrc/block_trisolve.cu``), one
+   nvcc each, started together;
 2. K1 against its plain torch version at the 56,383-dof default cylinder
    mesh, batch 1 and 4: max |kernel - plain| / max |plain| <= 1e-5 (f32 with
    a different summation order), both timed with CUDA events;
@@ -23,7 +24,9 @@ fails or no CUDA device is present:
 5. where the step's time goes (a measurement, no check): CUDA-event times
    of the dense LU solve, K1, the mass SpMV and the whole device step, and
    a torch.profiler trace of 10 ``fs.step`` calls giving the device's busy
-   share and its top kernels;
+   share and its top kernels; the device time of the pivoted factor's solve
+   (the permutation and two ``solve_triangular``) for 1 and 256 right-hand
+   sides, the library call K3 is held beside;
 6. the multifrontal main path at the same 56,383 dofs: a second
    ``make_default(Re=100)`` on ``cuda`` with
    ``stepper_options={"force_substructure": True}`` and the first run's base
@@ -43,15 +46,47 @@ fails or no CUDA device is present:
 8. accuracy: from the multifrontal carry after step 10, 10 more f32 steps
    against the host float64 loop of phase 4: relative field error <= 5e-4;
 9. where the multifrontal step's time goes: a torch.profiler trace of 10
-   ``fs.step`` calls (busy share, top kernels, kernel launches per step).
+   ``fs.step`` calls (busy share, top kernels, kernel launches per step);
+10. the block path, single stream, at the same 56,383 dofs: a third
+    ``make_default(Re=100)`` with ``stepper_options={"trisolve": "cuda"}``
+    (the pivoted factor has left the card): the blocked LU factored in f64
+    on the card (seconds, peak device memory), solve kinds
+    ``['borrowed', 'block']``, 200 ``fs.step`` calls with phase 3's
+    controls. All y and dE finite; K1 launched steps + 1 times and K3 once
+    per solve (21 on the borrowed first step, then one per step); y[-1]
+    within 1e-3 of the dense path's;
+11. K3 against its plain version on that factor, n = 56,383, bs = 1024,
+    random right-hand sides, batch 1 and 4: max |kernel - plain| / max
+    |plain| <= 1e-5 and two calls bitwise equal. Device time per solve
+    (torch.profiler) of K3 and plain at batch 1 and 256, each beside its
+    bound and phase 5's library time;
+12. accuracy: from the block path's carry after step 10, 10 more f32 steps
+    against the host float64 loop: relative field error <= 5e-4;
+13. batched open loop on the block and the multifrontal path: 256 copies
+    of the state with distinct controls, 20 steps of
+    ``rollout_open_loop``: aggregate steps/s over the 19 BDF2 steps, every
+    member finite, exact launch counts, and y of members 0 and 255 within
+    1e-4 (relative to its peak) of single-stream runs with their controls
+    (the differences in dE and in the final mixed state are printed; the
+    batched products sum in another order, and the state's pressure part
+    moves with it from run to run);
+14. batched closed loop on both paths: 256 two-state controllers through
+    the port's ``Controller.discrete`` (sensor 1 fed back, the same u on
+    both actuators, gains ``linspace(0.5, 1.5, 256)``), 20 steps of
+    ``rollout_closed_loop``: aggregate steps/s, dE finite, u differs
+    across members, and member 0 within 1e-4 of a single-stream
+    ``Controller.step`` + ``fs.step`` loop with gain 0.5;
+15. where the block path's step goes, single stream (10 ``fs.step`` calls)
+    and at batch 256 (3 ``Stepper.step`` calls): torch.profiler busy
+    share, top kernels, launches per step.
 
 The line before the last is a JSON object describing each kernel (K1, K2,
-P1): its launches on its main path, its largest error against its plain
-version, and the device times and least time (``bound_ms``) of the work
-of one main-path call (K1) or of one solve's launches (K2, P1), from this run's
-shapes: the bytes each call must move at 3.35 TB/s or its operations at the
-67 TFLOP/s f32 rate, whichever is larger. The last line is
-``{"ok": true, "device": {...}}``.
+K3 at batch 1 and at batch 256, P1): its launches on its main path, its
+largest error against its plain version, and the device times and least
+time (``bound_ms``) of the work of one main-path call (K1), of one solve's
+launches (K2, P1) or of one solve (K3), from this run's shapes: the bytes
+each call must move at 3.35 TB/s or its operations at the 67 TFLOP/s f32
+rate, whichever is larger. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -71,6 +106,10 @@ CD0_REF = 1.1413636679  # JAX package, host f64 Picard(3)+Newton, this mesh
 NDOFS_REF = 56_383
 K1_TOL = 1e-5
 MF_TOL = 1e-5
+K3_TOL = 1e-5
+BATCH = 256
+BATCH_STEPS = 20
+MEMBER_TOL = 1e-4  # a batch member against its single-stream run (f32, another summation order)
 FIELD_ERR_TOL = 5e-4
 # the H100's published peaks (SXM, 700 W): memory rate and f32 outside the
 # tensor cores
@@ -215,16 +254,18 @@ class HostF64Loop:
         return u_n
 
 
-def profile_steps(fs, tag: str, steps: int = 10) -> None:
-    """torch.profiler over ``steps`` fs.step calls: device busy share, top
-    kernels and kernel launches per step."""
+def profile_steps(fs, tag: str, steps: int = 10, step=None, what: str = "fs.step") -> None:
+    """torch.profiler over ``steps`` calls of ``step`` (default: fs.step
+    with zero control): device busy share, top kernels and kernel launches
+    per step."""
     from torch.profiler import ProfilerActivity, profile
 
     zero = np.zeros(2)
+    step = step or (lambda: fs.step(zero))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            fs.step(zero)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side rows only (kernels, memcpys): the CPU-op rows repeat the
@@ -236,7 +277,7 @@ def profile_steps(fs, tag: str, steps: int = 10) -> None:
     ]
     busy_us = sum(t for _, t, _ in rows)
     if busy_us > 0:
-        log(f"{tag}: profiler, {steps} fs.step: device busy {busy_us / wall_us:.3f} of "
+        log(f"{tag}: profiler, {steps} {what}: device busy {busy_us / wall_us:.3f} of "
             f"{wall_us / steps / 1e3:.3f} ms wall per step ({busy_us / steps / 1e3:.3f} ms busy); "
             f"{sum(c for _, _, c in rows) / steps:.1f} device launches per step")
         for key, t, c in sorted(rows, key=lambda r: -r[1])[:8]:
@@ -245,8 +286,10 @@ def profile_steps(fs, tag: str, steps: int = 10) -> None:
         log(f"{tag}: profiler recorded no device time: busy share not measured")
 
 
-def phase_breakdown(fs, st, dev) -> None:
-    """Per-part device times of one BDF2 step at the main path's shapes."""
+def phase_breakdown(fs, st, dev) -> dict:
+    """Per-part device times of one BDF2 step at the main path's shapes.
+    Returns the device time of the pivoted factor's solve for 1 and BATCH
+    right-hand sides (the library call beside K3)."""
     carry = fs._carry
     oi = st._order_idx[2]
     rhs = torch.ones(fs.space.n_dofs, dtype=st.dtype, device=dev)
@@ -258,6 +301,13 @@ def phase_breakdown(fs, st, dev) -> None:
     log(f"phase 5: CUDA-event ms per call: dense LU solve {t_solve:.3f}, N(u) K1 {t_nl:.4f}, "
         f"mass SpMV {t_mass:.4f}, Stepper.step span {t_step:.3f} (includes dispatch gaps)")
     profile_steps(fs, "phase 5")
+    lib = {}
+    for b in (1, BATCH):
+        panel = torch.ones((b, fs.space.n_dofs), dtype=st.dtype, device=dev)
+        lib[b] = device_ms([lambda: st._solvers[oi].solve(panel)], reps=5)
+    log(f"phase 5: pivoted factor's solve (permutation + two solve_triangular), device ms: "
+        f"{lib[1]:.3f} at B=1, {lib[BATCH]:.3f} at B={BATCH}")
+    return lib
 
 
 def run_path(fs, counters) -> dict:
@@ -387,6 +437,164 @@ def phase_mf_kernels(mf) -> dict:
     return {"K2": k2, "P1": p1}
 
 
+def phase_k3(blu, library_ms: dict) -> dict:
+    """K3 against its plain version on the block path's factor, batch 1 and
+    4; device times of K3 and plain at batch 1 and BATCH beside the bound.
+    Returns one result per timed batch width."""
+    from flowcontrol_tpu_torch.ops.trisolve import block_lu_solve_fused
+    from flowcontrol_tpu_torch.solvers.block_lu import block_lu_solve
+
+    dev, n, bs = blu.lu.device, blu.n, blu.bs
+    rng = np.random.default_rng(2)
+
+    def rand(b):
+        return torch.as_tensor(rng.standard_normal((b, n)), dtype=torch.float32, device=dev)
+
+    max_rel = max_abs = 0.0
+    for b in (1, 4):
+        rhs = rand(b)
+        got = block_lu_solve_fused(blu.tree(), rhs, bs=bs, n=n)
+        again = block_lu_solve_fused(blu.tree(), rhs, bs=bs, n=n)
+        ref = block_lu_solve(blu.tree(), rhs, bs=bs, n=n)
+        torch.cuda.synchronize()
+        rel, abs_err = rel_err(got, ref)
+        same = torch.equal(got, again)
+        log(f"phase 11: K3 B={b} n={n} n_pad={blu.n_pad} bs={bs}: max|k-p|/max|p| = {rel:.3e} "
+            f"(tol {K3_TOL:g}), max|k-p| = {abs_err:.3e}, two calls bitwise equal: {same}")
+        if not (rel <= K3_TOL and same and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K3 at B={b}: error {rel:.3e} against plain, repeatable {same}")
+        max_rel, max_abs = max(max_rel, rel), max(max_abs, abs_err)
+    out = {}
+    for b in (1, BATCH):
+        rhs = rand(b)
+        r = dict(max_abs_err=max_abs, library_ms=library_ms[b])
+        r["ms"] = device_ms([lambda: block_lu_solve_fused(blu.tree(), rhs, bs=bs, n=n)], reps=5)
+        r["plain_ms"] = device_ms([lambda: block_lu_solve(blu.tree(), rhs, bs=bs, n=n)], reps=5)
+        # one solve reads every block of lu but the diagonal ones, and dinv
+        # in their place (n_pad^2 values in all), b once, and writes x; each
+        # value read is one multiply-add per right-hand side
+        nbytes = 4.0 * blu.n_pad ** 2 + 2 * 4.0 * b * n
+        r["bound_ms"], r["bound_by"] = bound(nbytes, 2.0 * blu.n_pad ** 2 * b)
+        log(f"phase 11: K3 B={b}: device time per solve: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, library (pivoted factor, solve_triangular) "
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+            f"{nbytes / 1e9:.3f} GB, {2.0 * blu.n_pad ** 2 * b:.3e} operations)")
+        out[b] = r
+    return out
+
+
+def member_carry(carry, b: int):
+    """Batch member ``b`` of a batched carry, as a single-stream carry."""
+    from flowcontrol_tpu_torch.core.stepper import StepCarry
+
+    return StepCarry(*(f[b].clone() for f in carry[:-1]), it=carry.it)
+
+
+def phase_batched_open(st, up: np.ndarray, counters, tag: str) -> dict:
+    """BATCH copies of the state ``up`` with distinct controls through
+    ``init_carry`` + ``rollout_open_loop``; members 0 and BATCH-1 against
+    single-stream runs with their controls."""
+    amps = np.linspace(0.5, 1.5, BATCH)
+    u_seq = np.tile(amps[:, None] * np.array([0.3, -0.2]), (BATCH_STEPS, 1, 1))
+    up_b = torch.as_tensor(up, dtype=st.dtype, device=st.device).expand(BATCH, -1).contiguous()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    carry = st.init_carry(up_b)
+    carry, first = st.rollout_open_loop(carry, u_seq[:1])  # the borrowed BDF1 step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, rest = st.rollout_open_loop(carry, u_seq[1:])
+    torch.cuda.synchronize()
+    sps = (BATCH_STEPS - 1) * BATCH / (time.perf_counter() - t0)
+    launches = [c.launches for c in counters]
+    y, de = torch.cat([first.y, rest.y]), torch.cat([first.dE, rest.dE])
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(de).all()
+                  and torch.isfinite(carry.u_n).all())
+    if not finite or bool(rest.diverged.any()) or y.shape != (BATCH_STEPS, BATCH, st.ns):
+        raise AssertionError(f"{tag}: a batch member is not finite")
+    spread = float((y[-1, 0] - y[-1, -1]).abs().max())
+    y_errs, de_errs, x_errs = [], [], []
+    for b in (0, BATCH - 1):
+        c1, o1 = st.rollout_open_loop(st.init_carry(up), u_seq[:, b])
+        y_errs.append(rel_err(y[:, b], o1.y)[0])
+        de_errs.append(rel_err(de[:, b], o1.dE)[0])
+        x_errs.append(float((carry.u_n[b] - c1.u_n).norm() / c1.u_n.norm()))
+    log(f"{tag}: B={BATCH}, {BATCH_STEPS} steps: {sps:.1f} aggregate steps/s over the "
+        f"{BATCH_STEPS - 1} BDF2 steps; all members finite; y[-1] of members 0 and "
+        f"{BATCH - 1} differ by {spread:.3e}; members 0 and {BATCH - 1} against single-stream "
+        f"runs: y max|b-s|/max|s| {y_errs[0]:.3e}, {y_errs[1]:.3e} (tol {MEMBER_TOL:g}); "
+        f"measured, not held: dE {de_errs[0]:.3e}, {de_errs[1]:.3e}, final mixed state "
+        f"(relative L2) {x_errs[0]:.3e}, {x_errs[1]:.3e}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not (max(y_errs) <= MEMBER_TOL and spread > 0):
+        raise AssertionError(f"{tag}: batch members against single-stream runs: {y_errs}")
+    return dict(sps=sps, launches=launches, carry=carry, y_last=y[-1])
+
+
+def controller_population(st, dt: float):
+    """BATCH two-state controllers: sensor 1 fed back, the same u on both
+    actuators, gains linspace(0.5, 1.5). Returns (A, B, C, D of the
+    unit-gain controller with the sensor selection and the actuator
+    duplication folded in, gains, stacked k_mats)."""
+    from flowcontrol_tpu_torch.core.controller import Controller
+
+    sel = np.zeros((1, st.ns))
+    sel[0, 0] = 1.0
+    dup = np.ones((st.n_act, 1))
+    a, b = np.array([[-2.0, 1.0], [0.0, -3.0]]), np.array([[0.5], [1.0]])
+    c, d = np.array([[0.2, 0.1]]), np.zeros((1, 1))
+    ad, bd, cd, dd = Controller.from_matrices(A=a, B=b, C=c, D=d).discrete(dt, dtype=np.float32)
+    gains = np.linspace(0.5, 1.5, BATCH, dtype=np.float32)
+    k_mats = (
+        np.tile(ad, (BATCH, 1, 1)),
+        np.tile((bd @ sel).astype(np.float32), (BATCH, 1, 1)),
+        gains[:, None, None] * (dup @ cd).astype(np.float32),
+        gains[:, None, None] * (dup @ dd @ sel).astype(np.float32),
+    )
+    return (a, b, dup @ c, dup @ d), gains, k_mats
+
+
+def phase_batched_closed(fs, st, carry, y0, counters, tag: str) -> dict:
+    """BATCH controllers on the batched carry through ``rollout_closed_loop``
+    (every step BDF2: the carry continues the open-loop rollout); member 0
+    against a single-stream ``Controller.step`` + ``fs.step`` loop."""
+    from flowcontrol_tpu_torch.core.controller import Controller
+
+    dt = fs.params_time.dt
+    (a, b, c, d), gains, k_mats = controller_population(st, dt)
+    for cnt in counters:
+        cnt.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, (ys, des, us, divs) = st.rollout_closed_loop(carry, k_mats, y0, BATCH_STEPS)
+    torch.cuda.synchronize()
+    sps = BATCH_STEPS * BATCH / (time.perf_counter() - t0)
+    launches = [cnt.launches for cnt in counters]
+    spread = float((us[:, 0] - us[:, -1]).abs().max())
+    if not (bool(torch.isfinite(des).all() and torch.isfinite(ys).all()) and spread > 0
+            and not bool(divs.any()) and us.shape == (BATCH_STEPS, BATCH, st.n_act)):
+        raise AssertionError(f"{tag}: closed-loop rollout not finite, or u equal across members")
+    # member 0 through the normal entry points, gain 0.5
+    k0 = Controller.from_matrices(A=a, B=b, C=float(gains[0]) * c, D=float(gains[0]) * d)
+    fs._carry = member_carry(carry, 0)
+    y, ys1, us1 = y0[0].double().cpu().numpy(), [], []
+    for _ in range(BATCH_STEPS):
+        u = k0.step(-y[:1], dt)
+        y = fs.step(u_ctrl=u)
+        ys1.append(y)
+        us1.append(u)
+    err_y = rel_err(ys[:, 0].double().cpu(), torch.as_tensor(np.asarray(ys1)))[0]
+    err_u = rel_err(us[:, 0].double().cpu(), torch.as_tensor(np.asarray(us1)))[0]
+    log(f"{tag}: B={BATCH} controllers, {BATCH_STEPS} steps: {sps:.1f} aggregate steps/s; dE "
+        f"finite; max|u| {float(us.abs().max()):.3e}, u of members 0 and {BATCH - 1} differ by "
+        f"{spread:.3e}; member 0 against the single-stream Controller.step + fs.step loop "
+        f"(gain {float(gains[0]):g}), relative: y {err_y:.3e}, u {err_u:.3e} (tol {MEMBER_TOL:g})")
+    if not max(err_y, err_u) <= MEMBER_TOL:
+        raise AssertionError(f"{tag}: member 0 against its single-stream loop: {err_y}, {err_u}")
+    return dict(sps=sps, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
@@ -396,6 +604,8 @@ def main() -> int:
     from flowcontrol_tpu_torch.ops.cuda_build import build_all
     from flowcontrol_tpu_torch.ops.mf_matvec import MF_KERNELS, gather_sum_sub, stack_matvec
     from flowcontrol_tpu_torch.ops.nl import NL_KERNEL, nonlinear_convection
+    from flowcontrol_tpu_torch.ops.trisolve import TRISOLVE_KERNEL, block_lu_solve_fused
+    from flowcontrol_tpu_torch.solvers.block_lu import BlockLU
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -407,9 +617,9 @@ def main() -> int:
     log(f"phase 1: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {kind}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    build_all([NL_KERNEL, MF_KERNELS])
+    build_all([NL_KERNEL, MF_KERNELS, TRISOLVE_KERNEL])
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s wall (parallel nvcc)")
-    for name, lib in (("K1", NL_KERNEL), ("K2+P1", MF_KERNELS)):
+    for name, lib in (("K1", NL_KERNEL), ("K2+P1", MF_KERNELS), ("K3", TRISOLVE_KERNEL)):
         log(f"phase 1: {name} built from {lib.source.name} in {lib.build_seconds:.2f} s "
             f"-> {lib.library_path().name}")
         for line in lib.build_log.splitlines():
@@ -440,7 +650,7 @@ def main() -> int:
         raise AssertionError(f"cd0 {fs.cd0} differs from {CD0_REF} by {cd_rel:.2e}")
 
     fs.initialize_time_stepping()
-    counters = (nonlinear_convection, stack_matvec, gather_sum_sub)
+    counters = (nonlinear_convection, stack_matvec, gather_sum_sub, block_lu_solve_fused)
     dense = run_path(fs, counters)
     st = dense["st"]
     k1_launches = dense["launches"][0]
@@ -451,17 +661,17 @@ def main() -> int:
     log(f"phase 3: {NUM_STEPS} steps, single-stream {dense['sps']:.2f} steps/s over the last "
         f"{NUM_STEPS - CTRL_STEPS} ({card}); y[-1] = {dense['ys'][-1].tolist()}, "
         f"dE[-1] = {dense['de'][-1]:.6e}")
-    log(f"phase 3: launches K1 {k1_launches} (expected {NUM_STEPS + 1}), "
-        f"K2 {dense['launches'][1]}, P1 {dense['launches'][2]} (expected 0)")
-    if dense["launches"] != [NUM_STEPS + 1, 0, 0]:
+    log(f"phase 3: launches K1 {k1_launches} (expected {NUM_STEPS + 1}), K2 "
+        f"{dense['launches'][1]}, P1 {dense['launches'][2]}, K3 {dense['launches'][3]} (expected 0)")
+    if dense["launches"] != [NUM_STEPS + 1, 0, 0, 0]:
         raise AssertionError(f"dense path launches {dense['launches']}, "
-                             f"expected {[NUM_STEPS + 1, 0, 0]}")
+                             f"expected {[NUM_STEPS + 1, 0, 0, 0]}")
 
     # ── phase 4: accuracy against host f64 ───────────────────────────────────
     host = HostF64Loop(fs)
     accuracy(host, st, dense["carry10"], "phase 4")
 
-    phase_breakdown(fs, st, dev)
+    library_ms = phase_breakdown(fs, st, dev)
 
     # ── phase 6: the multifrontal main path ──────────────────────────────────
     del st, dense["st"]
@@ -481,7 +691,7 @@ def main() -> int:
     mf = st2._solvers[oi2]
     k2_per, p1_per = mf.launches_per_solve()
     solves = (1 + st2.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
-    expected = [NUM_STEPS + 1, solves * k2_per, solves * p1_per]
+    expected = [NUM_STEPS + 1, solves * k2_per, solves * p1_per, 0]
     t = mf.timings
     log(f"phase 6: solve kinds {st2._solver_kinds} (expected ['borrowed', 'multifrontal']), "
         f"dtype {st2.dtype}, refinement sweeps {st2._refine}")
@@ -498,7 +708,7 @@ def main() -> int:
         f"{NUM_STEPS - CTRL_STEPS} (dense path {dense['sps']:.2f}; {card}); "
         f"y[-1] = {mfp['ys'][-1].tolist()} (dense path {dense['ys'][-1].tolist()}), "
         f"dE[-1] = {mfp['de'][-1]:.6e}")
-    log(f"phase 6: launches K1/K2/P1 {mfp['launches']} (expected {expected}: {solves} solves "
+    log(f"phase 6: launches K1/K2/P1/K3 {mfp['launches']} (expected {expected}: {solves} solves "
         f"x {k2_per} K2 and {p1_per} P1 per solve)")
     if st2._solver_kinds != ["borrowed", "multifrontal"]:
         raise AssertionError(f"solve kinds {st2._solver_kinds}")
@@ -520,6 +730,87 @@ def main() -> int:
         " (both include dispatch gaps)")
     profile_steps(fs2, "phase 9")
 
+    # ── phase 10: the block path, single stream ──────────────────────────────
+    t0 = time.perf_counter()
+    fs3 = CylinderFlowSolver.make_default(
+        Re=RE, num_steps=NUM_STEPS, device="cuda", stepper_options={"trisolve": "cuda"},
+    )
+    fs3._assign_steady_state(fs.fields.U0, fs.fields.P0)
+    fs3.initialize_time_stepping()
+    t_mesh3 = time.perf_counter() - t0
+    blk = run_path(fs3, counters)
+    st3 = blk["st"]
+    blu = st3._solvers[st3._order_idx[2]]
+    k3_solves = (1 + st3.BORROW_ITERS) + (NUM_STEPS - 1)
+    expected = [NUM_STEPS + 1, 0, 0, k3_solves]
+    y_rel = float(np.abs(blk["ys"][-1] - dense["ys"][-1]).max() / np.abs(dense["ys"][-1]).max())
+    log(f"phase 10: solve kinds {st3._solver_kinds} (expected ['borrowed', 'block']), dtype "
+        f"{st3.dtype}, refinement sweeps {st3._refine}; BlockLU n_pad {blu.n_pad}, bs {blu.bs}, "
+        f"nb {blu.nb}, lu {blu.lu.nbytes / 1e9:.3f} GB + dinv {blu.dinv.nbytes / 1e9:.3f} GB "
+        f"{blu.lu.dtype}")
+    log(f"phase 10: setup s: mesh+spaces {t_mesh3:.2f}, f64 blocked factorization+init_carry "
+        f"{blk['t_factor']:.2f}; peak device memory {blk['peak_gb']:.2f} GB (pivoted path "
+        f"{dense['peak_gb']:.2f} GB)")
+    log(f"phase 10: {NUM_STEPS} steps, single-stream {blk['sps']:.2f} steps/s over the last "
+        f"{NUM_STEPS - CTRL_STEPS} (dense path {dense['sps']:.2f}, multifrontal {mfp['sps']:.2f}; "
+        f"{card}); y[-1] = {blk['ys'][-1].tolist()}, relative to the dense path's {y_rel:.3e} "
+        f"(tol 1e-3), dE[-1] = {blk['de'][-1]:.6e}")
+    log(f"phase 10: launches K1/K2/P1/K3 {blk['launches']} (expected {expected}: "
+        f"{k3_solves} solves, one K3 call each)")
+    if st3._solver_kinds != ["borrowed", "block"] or not isinstance(blu, BlockLU):
+        raise AssertionError(f"solve kinds {st3._solver_kinds}")
+    if blk["launches"] != expected:
+        raise AssertionError(f"block path launches {blk['launches']}, expected {expected}")
+    if not y_rel <= 1e-3:
+        raise AssertionError(f"block path y[-1] differs from the dense path's by {y_rel:.3e}")
+
+    # ── phase 11: K3 against plain ───────────────────────────────────────────
+    k3 = phase_k3(blu, library_ms)
+
+    # ── phase 12: accuracy against host f64 ──────────────────────────────────
+    accuracy(host, st3, blk["carry10"], "phase 12")
+
+    # ── phase 13: batched open loop, both paths ──────────────────────────────
+    up = fs3._carry.u_n.double().cpu().numpy()  # the block path's state after its steps
+    solves_b = (1 + st3.BORROW_ITERS) + (BATCH_STEPS - 1)
+    open_blk = phase_batched_open(st3, up, counters, "phase 13 (block)")
+    open_mf = phase_batched_open(st2, up, counters, "phase 13 (multifrontal)")
+    solves_mf = (1 + st2.BORROW_ITERS) + (BATCH_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
+    expected_open = {"block": [BATCH_STEPS + 1, 0, 0, solves_b],
+                     "multifrontal": [BATCH_STEPS + 1, solves_mf * k2_per, solves_mf * p1_per, 0]}
+    for name, r in (("block", open_blk), ("multifrontal", open_mf)):
+        log(f"phase 13 ({name}): launches K1/K2/P1/K3 {r['launches']} "
+            f"(expected {expected_open[name]})")
+        if r["launches"] != expected_open[name]:
+            raise AssertionError(f"batched open loop ({name}) launches {r['launches']}")
+
+    # ── phase 14: batched closed loop, both paths ────────────────────────────
+    closed_blk = phase_batched_closed(fs3, st3, open_blk["carry"], open_blk["y_last"], counters,
+                                      "phase 14 (block)")
+    closed_mf = phase_batched_closed(fs2, st2, open_mf["carry"], open_mf["y_last"], counters,
+                                     "phase 14 (multifrontal)")
+    per_step_mf = 1 + st2._refine.get(oi2, 0)
+    expected_closed = {
+        "block": [BATCH_STEPS, 0, 0, BATCH_STEPS],
+        "multifrontal": [BATCH_STEPS, BATCH_STEPS * per_step_mf * k2_per,
+                         BATCH_STEPS * per_step_mf * p1_per, 0],
+    }
+    for name, r in (("block", closed_blk), ("multifrontal", closed_mf)):
+        log(f"phase 14 ({name}): launches K1/K2/P1/K3 {r['launches']} "
+            f"(expected {expected_closed[name]})")
+        if r["launches"] != expected_closed[name]:
+            raise AssertionError(f"batched closed loop ({name}) launches {r['launches']}")
+    k3_batched_launches = open_blk["launches"][3] + closed_blk["launches"][3]
+
+    # ── phase 15: where the block path's step goes, B = 1 and B = BATCH ──────
+    profile_steps(fs3, "phase 15 (B=1)")
+    carry_b = open_blk["carry"]
+    u_b = torch.zeros((BATCH, st3.n_act), dtype=st3.dtype, device=dev)
+    st3.step(carry_b, u_b)
+    torch.cuda.synchronize()
+    profile_steps(fs3, f"phase 15 (B={BATCH})", steps=3, step=lambda: st3.step(carry_b, u_b),
+                  what="Stepper.step")
+
     def row(name, source, replaces, launches, r, library_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -533,6 +824,12 @@ def main() -> int:
         row("K2 stack_matvec", src + "mf_sweep.cu",
             "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", mfp["launches"][1], mfk["K2"],
             mfk["K2"]["library_ms"]),
+        row("K3 block_lu_solve_fused B=1", src + "block_trisolve.cu",
+            "flowcontrol_tpu/ops/pallas_trisolve.py:127", blk["launches"][3], k3[1],
+            k3[1]["library_ms"]),
+        row(f"K3 block_lu_solve_fused B={BATCH}", src + "block_trisolve.cu",
+            "flowcontrol_tpu/ops/pallas_trisolve.py:127", k3_batched_launches, k3[BATCH],
+            k3[BATCH]["library_ms"]),
         row("P1 gather_sum_sub", src + "mf_sweep.cu",
             "tools/pallas_gather_probe.py:50", mfp["launches"][2], mfk["P1"], None),
     ]}), flush=True)

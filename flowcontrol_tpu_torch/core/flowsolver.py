@@ -9,9 +9,11 @@ flowsolver.py:727-737).
 
 The mesh, spaces, BCs and the base flow are host float64 numpy/scipy; the
 time-stepping hot loop is a :class:`Stepper` on ``ParamSolver.device``.
-Not ported yet (ROADMAP.md): mesh files, field snapshots and restart
-(``save_every > 0``, ``Tstart > 0``), controllers and rollouts of many
-streams. Subclass API:
+The closed loop runs through ``step`` with the port's ``Controller``
+(``u = K.step(y, dt); fs.step(u_ctrl=u)``); rollouts of many streams and the
+fused closed loop are the Stepper's (``rollout_open_loop``,
+``rollout_closed_loop``). Not ported yet (ROADMAP.md): mesh files, field
+snapshots and restart (``save_every > 0``, ``Tstart > 0``). Subclass API:
 
     _make_boundaries() -> dict[str, predicate(midpoints)->mask]
     _make_bcs()        -> BoundaryConditions (first bcu entry MUST be inlet)

@@ -121,7 +121,8 @@ class ParamSolver(ParamFlowSolver):
     pin_pressure: bool | None = None  # None = auto-detect enclosed flows
     # extra Stepper keyword overrides — any core.stepper.Stepper dataclass
     # field, e.g. force_substructure=True (the multifrontal solve even
-    # where the dense LU fits)
+    # where the dense LU fits) or trisolve="cuda" (the blocked LU solved by
+    # kernel K3 in place of the pivoted LU's triangular solves)
     stepper_options: dict = field(default_factory=dict)
 
 

@@ -12,6 +12,9 @@ one explicit device:
     y   = C x,  dE = ½ xᵀ M x  (the step's one mass apply, a CSR SpMV),
           divergence flag
 
+Every state, control and output may carry leading batch dimensions: one
+code path steps a single stream (n,) and a batch (B, n) of plant copies.
+
 All device state (LU factors, CSR operators, lifting vectors, sensor rows,
 the N(u) tables) lives in one plain dict of tensors, ``self._dev``, on
 ``self.device``. A Python loop takes the place of ``lax.scan``; the step
@@ -23,11 +26,12 @@ Not transcribed, because they exist for the TPU: the banded mass apply
 (``ops/banded.py``; gathers are slow on a TPU, a CSR SpMV is not slow on a
 GPU), the window-blocked N(u) (``ops/cellwindows.py``; K1 gathers
 directly) and the hot dof order (permutes are costly on a TPU): the port
-keeps mesh order everywhere. The direct solve is the dense LU while its f64
-factorization fits the device, else the multifrontal solve
+keeps mesh order everywhere. The direct solve is a dense LU while its f64
+factorization fits the device (``trisolve="torch"``: pivoted, cuBLAS
+triangular solves; ``trisolve="cuda"``: the blocked LU of
+``solvers/block_lu.py`` solved by kernel K3), else the multifrontal solve
 (``solvers/multifrontal.py``, kernels K2 and P1 on CUDA). The substructured
-and Krylov solves and batched/closed-loop rollouts are later slices
-(ROADMAP.md).
+and Krylov solves are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,7 +48,9 @@ from flowcontrol_tpu_torch.config import device_memory_budget_bytes, require_dev
 from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
 from flowcontrol_tpu_torch.fem.bc import BCSet
 from flowcontrol_tpu_torch.ops.nl import NLTables, nonlinear_convection
+from flowcontrol_tpu_torch.ops.trisolve import block_lu_solve_fused
 from flowcontrol_tpu_torch.parallel.dofsharding import mixed_dof_coordinates
+from flowcontrol_tpu_torch.solvers.block_lu import BlockLU
 from flowcontrol_tpu_torch.solvers.direct import DeviceDenseLU, HostSparseLU
 from flowcontrol_tpu_torch.solvers.multifrontal import MultifrontalLU
 
@@ -52,7 +58,8 @@ logger = logging.getLogger(__name__)
 
 
 class StepCarry(NamedTuple):
-    """State carried from step to step (mesh order).
+    """State carried from step to step (mesh order). Every tensor may carry
+    leading batch dimensions (B, ...); ``it`` is one count for all members.
 
     mu_n/mu_nn carry M@u forward: the step needs M@x anyway (dE = ½xᵀMx)
     and M is constant, so caching it makes the step's three mass applies
@@ -68,9 +75,9 @@ class StepCarry(NamedTuple):
 
 
 class StepOutput(NamedTuple):
-    y: torch.Tensor  # sensor measurements (ns,)
-    dE: torch.Tensor  # perturbation kinetic energy
-    diverged: torch.Tensor  # bool
+    y: torch.Tensor  # sensor measurements (..., ns)
+    dE: torch.Tensor  # perturbation kinetic energy (...)
+    diverged: torch.Tensor  # bool (...), per batch member
     x: torch.Tensor | None  # full state (None in stacked rollout outputs)
 
 
@@ -110,6 +117,15 @@ def csr_to_device(a_csr, device, dtype) -> torch.Tensor:
         )
 
 
+def sparse_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``a @ x`` over the last dimension of x (..., n) for a sparse CSR a:
+    an SpMV for one vector, a sparse-dense product on (n, B) for a batch."""
+    if x.dim() == 1:
+        return torch.mv(a, x)
+    flat = x.reshape(-1, x.shape[-1])
+    return (a @ flat.T).T.contiguous().reshape(x.shape[:-1] + (a.shape[0],))
+
+
 def dense_lu_max_dofs_device(device) -> int:
     """Largest dof count the dense LU takes on ``device``: the factor is
     computed in f64, so A and LU together (16 n^2 bytes) must fit the
@@ -136,9 +152,16 @@ class Stepper:
     #: take the multifrontal solve even where the dense LU fits (the dense
     #: LU's kinds become 'multifrontal'; the borrowed first step stays)
     force_substructure: bool = False
-    #: the reference's size rule for its two dense kinds: 'lapack' up to
-    #: this size, 'block' above. On the port both are the same torch.linalg
-    #: LU; the label is kept so the selection reads as the reference's.
+    #: the dense solve above LAPACK_LU_MAX_N dofs: 'torch' (the pivoted
+    #: torch.linalg LU, cuBLAS triangular solves) or 'cuda' (the blocked LU
+    #: of solvers/block_lu.py, solved by the fused substitution kernel K3)
+    trisolve: str = "torch"
+    block_lu_bs: int = 1024
+    #: the reference's size rule for its two dense kinds: 'lapack' (pivoted
+    #: LU) up to this size, 'block' above. Under trisolve='cuda' 'block' is
+    #: the BlockLU factor; under 'torch' it is the same pivoted LU as
+    #: 'lapack', and the label only keeps the selection reading as the
+    #: reference's.
     LAPACK_LU_MAX_N = 8192
     #: above this many dofs only the BDF2 matrix is factored and the single
     #: BDF1 first step is solved by Richardson iteration preconditioned with
@@ -161,6 +184,8 @@ class Stepper:
             raise ValueError(
                 f"host_lu is the CPU validation backend; on {dev_t} use dense_lu"
             )
+        if self.trisolve not in ("torch", "cuda"):
+            raise ValueError(f"trisolve must be 'torch' or 'cuda', got {self.trisolve!r}")
         if dev_t.type == "cuda" and forms.is_nonlinear and dt != torch.float32:
             raise TypeError(f"N(u) kernel K1 takes float32 only, got {dt} on {dev_t}")
         require_device(dev_t)
@@ -218,7 +243,11 @@ class Stepper:
                 # computed in f64 and stored in dt: rounding-limited, so no
                 # refinement sweep (reference: field err 2.2e-4 with 0 sweeps
                 # vs 1.8e-4 with 1, core/stepper.py:535-538)
-                self._solvers.append(DeviceDenseLU(a_bc, dev_t, store_dtype=dt))
+                if n > self.LAPACK_LU_MAX_N and self.trisolve == "cuda":
+                    self._solvers.append(BlockLU(a_bc, bs=self.block_lu_bs, dtype=torch.float64,
+                                                 store_dtype=dt, device=dev_t))
+                else:
+                    self._solvers.append(DeviceDenseLU(a_bc, dev_t, store_dtype=dt))
                 self._solver_kinds.append("lapack" if n <= self.LAPACK_LU_MAX_N else "block")
             elif self.backend == "dense_lu":
                 # past the dense range: host-f64 multifrontal factors stored
@@ -259,8 +288,14 @@ class Stepper:
 
     # ── Step math ────────────────────────────────────────────────────────────
 
+    def _tensor(self, a) -> torch.Tensor:
+        """``a`` (array-like or tensor) in the stepper's dtype on its device."""
+        if not isinstance(a, torch.Tensor):
+            a = np.asarray(a)
+        return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+
     def _mass(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.mv(self._dev["m"], x)
+        return sparse_matvec(self._dev["m"], x)
 
     def _nl(self, x: torch.Tensor) -> torch.Tensor:
         if self._dev["nl"] is None:
@@ -279,7 +314,7 @@ class Stepper:
         if c["c_nl_nn"]:
             rhs = rhs + c["c_nl_nn"] * carry.n_prev
         if c["c_lvel"]:
-            rhs = rhs + c["c_lvel"] * torch.mv(d["lvel"], carry.u_n)
+            rhs = rhs + c["c_lvel"] * sparse_matvec(d["lvel"], carry.u_n)
         g = d["bc_values"]
         if self.n_act:
             f_amp = c["c_f"] * u_ctrl + c["c_fn"] * carry.u_ctrl_prev
@@ -287,13 +322,15 @@ class Stepper:
             rhs = rhs - u_ctrl @ d["lift_act"][oi]
             g = g + u_ctrl @ d["bc_profiles"]
         rhs = rhs - d["lift_static"][oi]
-        rhs[d["bc_dofs"]] = g
+        rhs[..., d["bc_dofs"]] = g
         return rhs
 
     def _solve_once(self, oi: int, rhs: torch.Tensor) -> torch.Tensor:
         s = self._solvers[oi]
         if isinstance(s, HostSparseLU):  # CPU only (see __post_init__)
             return torch.as_tensor(s.solve(rhs.numpy()), dtype=rhs.dtype)
+        if isinstance(s, BlockLU):
+            return block_lu_solve_fused(s.tree(), rhs, bs=s.bs, n=s.n)
         return s.solve(rhs)
 
     def _solve(self, order, rhs):
@@ -305,11 +342,11 @@ class Stepper:
             a1 = self._dev["a_bc"][oi]
             x = self._solve_once(oi2, rhs)
             for _ in range(self.BORROW_ITERS):
-                x = x + self._solve_once(oi2, rhs - torch.mv(a1, x))
+                x = x + self._solve_once(oi2, rhs - sparse_matvec(a1, x))
             return x
         x = self._solve_once(oi, rhs)
         for _ in range(self._refine.get(oi, 0)):
-            x = x + self._solve_once(oi, rhs - torch.mv(self._dev["a_bc"][oi], x))
+            x = x + self._solve_once(oi, rhs - sparse_matvec(self._dev["a_bc"][oi], x))
         return x
 
     def _order_of(self, carry: StepCarry):
@@ -318,18 +355,20 @@ class Stepper:
         return 1 if carry.it == 0 else 2
 
     def step(self, carry: StepCarry, u_ctrl) -> tuple[StepCarry, StepOutput]:
-        """One time step: (carry, u_ctrl (n_act,)) -> (carry', StepOutput)."""
-        u_ctrl = torch.as_tensor(u_ctrl, dtype=self.dtype, device=self.device).reshape(self.n_act)
+        """One time step: (carry, u_ctrl (..., n_act)) -> (carry', StepOutput)."""
+        u_ctrl = self._tensor(u_ctrl)
+        if u_ctrl.shape[-1:] != (self.n_act,):
+            raise ValueError(f"u_ctrl has shape {tuple(u_ctrl.shape)}, needs (..., {self.n_act})")
         order = self._order_of(carry)
         nl_n = self._nl(carry.u_n)
         rhs = self._rhs(order, carry, u_ctrl, nl_n)
         x = self._solve(order, rhs)
-        y = self._dev["c"] @ x
+        y = x @ self._dev["c"].T
         # the ONE mass apply of the step: feeds dE now and the next step's
         # RHS via the carry (see StepCarry)
         mx = self._mass(x)
-        de = 0.5 * torch.dot(x, mx)
-        diverged = ~torch.isfinite(x).all()
+        de = 0.5 * torch.einsum("...i,...i->...", x, mx)
+        diverged = ~torch.isfinite(x).all(dim=-1)
         new_carry = StepCarry(
             u_n=x, u_nn=carry.u_n, mu_n=mx, mu_nn=carry.mu_n, n_prev=nl_n,
             u_ctrl_prev=u_ctrl, it=carry.it + 1,
@@ -339,12 +378,11 @@ class Stepper:
     # ── Public API ───────────────────────────────────────────────────────────
 
     def init_carry(self, up0: np.ndarray, up_prev: np.ndarray | None = None) -> StepCarry:
-        """Carry from an initial mixed state in mesh order (and an optional
-        previous state for BDF2 restarts — ref: flowsolver.py:599-663)."""
-        u0 = torch.as_tensor(np.asarray(up0), dtype=self.dtype, device=self.device)
-        um1 = u0 if up_prev is None else torch.as_tensor(
-            np.asarray(up_prev), dtype=self.dtype, device=self.device
-        )
+        """Carry from an initial mixed state (..., n) in mesh order (and an
+        optional previous state for BDF2 restarts — ref:
+        flowsolver.py:599-663)."""
+        u0 = self._tensor(up0)
+        um1 = u0 if up_prev is None else self._tensor(up_prev)
         mu0 = self._mass(u0)
         return StepCarry(
             u_n=u0,
@@ -352,15 +390,17 @@ class Stepper:
             mu_n=mu0,
             mu_nn=mu0 if up_prev is None else self._mass(um1),
             n_prev=self._nl(um1),
-            u_ctrl_prev=torch.zeros(self.n_act, dtype=self.dtype, device=self.device),
+            u_ctrl_prev=torch.zeros(u0.shape[:-1] + (self.n_act,), dtype=self.dtype,
+                                    device=self.device),
             it=0,
         )
 
     def rollout_open_loop(self, carry: StepCarry, u_seq):
-        """Step through a prescribed control sequence (T, n_act), single
-        stream. Returns (carry, StepOutput) with y, dE and diverged stacked
-        over T; x is None (the final state is in the carry)."""
-        u_seq = torch.as_tensor(np.asarray(u_seq), dtype=self.dtype, device=self.device)
+        """Step through a prescribed control sequence (T, ..., n_act).
+        Returns (carry, StepOutput) with y, dE and diverged stacked over T;
+        x is None: a rollout never stacks the per-step states (T·B·n values
+        beside the resident factor), the final state is in the carry."""
+        u_seq = self._tensor(u_seq)
         ys, des, divs = [], [], []
         for u in u_seq:
             carry, out = self.step(carry, u)
@@ -370,3 +410,34 @@ class Stepper:
         return carry, StepOutput(
             y=torch.stack(ys), dE=torch.stack(des), diverged=torch.stack(divs), x=None
         )
+
+    def rollout_closed_loop(self, carry: StepCarry, k_mats, y0, num_steps: int,
+                            feedback_sign: float = -1.0):
+        """Fused plant + controller rollout, all on the device.
+
+        ``k_mats`` = (Ad, Bd, Cd, Dd), the discrete controller matrices
+        (``Controller.discrete``), or (B, ...) stacks of them with a batched
+        carry (``stack_controllers``). Each step: u = Cd xk + Dd (sign·y);
+        xk' = Ad xk + Bd (sign·y); then the plant step with u, matching the
+        reference's lockstep loop (ref: run_cylinder_example.py:83-86).
+        Returns (carry, (y, dE, u, diverged)) stacked over the steps.
+        """
+        ad, bd, cd, dd = (self._tensor(m) for m in k_mats)
+        xk = torch.zeros(ad.shape[:-1], dtype=self.dtype, device=self.device)
+        y = self._tensor(y0)
+
+        def mv(a, v):
+            return torch.einsum("...ij,...j->...i", a, v)
+
+        ys, des, us, divs = [], [], [], []
+        for _ in range(num_steps):
+            fb = feedback_sign * y
+            u = mv(cd, xk) + mv(dd, fb)
+            xk = mv(ad, xk) + mv(bd, fb)
+            carry, out = self.step(carry, u)
+            y = out.y
+            ys.append(y)
+            des.append(out.dE)
+            us.append(u)
+            divs.append(out.diverged)
+        return carry, (torch.stack(ys), torch.stack(des), torch.stack(us), torch.stack(divs))

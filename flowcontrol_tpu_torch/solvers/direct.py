@@ -6,11 +6,13 @@ The reference funnels every linear solve through MUMPS
 
 - ``HostSparseLU``: scipy splu (f64) — setup-time solves (steady state) and
   the host validation backend.
-- ``DeviceDenseLU``: dense LU resident on the device through
-  ``torch.linalg`` (cuSOLVER/cuBLAS on CUDA, LAPACK on the CPU). It
-  replaces both of the JAX package's dense kinds: the XLA ``lu_factor`` and
-  the matmul-blocked ``solvers/block_lu.py``, which exists only because
-  XLA's LU ran out of VMEM on the TPU.
+- ``DeviceDenseLU``: dense LU with partial pivoting resident on the device
+  through ``torch.linalg`` (cuSOLVER/cuBLAS on CUDA, LAPACK on the CPU):
+  the counterpart of the XLA ``lu_factor`` kind, and the Stepper's dense
+  solve at every size under ``trisolve="torch"``.
+
+The blocked LU without pivoting, whose factor the fused substitution kernel
+K3 consumes (``trisolve="cuda"``), is ``solvers/block_lu.py``.
 """
 
 from __future__ import annotations
@@ -29,16 +31,26 @@ class HostSparseLU:
         self.n = a_csr.shape[0]
 
     def solve(self, b: np.ndarray) -> np.ndarray:
-        """x = A^-1 b for one right-hand side b (n,)."""
-        return self._lu.solve(np.asarray(b, dtype=np.float64))
+        """x = A^-1 b for b (..., n)."""
+        b = np.asarray(b, dtype=np.float64)
+        if b.ndim == 1:
+            return self._lu.solve(b)
+        x = self._lu.solve(np.ascontiguousarray(b.reshape(-1, self.n).T))
+        return np.ascontiguousarray(x.T).reshape(b.shape)
 
 
-def dense_from_csr_on_device(a_csr, device, dtype) -> torch.Tensor:
+def dense_from_csr_on_device(a_csr, device, dtype, n_pad: int | None = None) -> torch.Tensor:
     """Densify a scipy CSR matrix ON the device: ships the O(nnz) triplets,
-    never an n x n host array (25 GB in f64 at 56k dofs)."""
+    never an n x n host array (25 GB in f64 at 56k dofs). With ``n_pad``
+    the result is (n_pad, n_pad) with the identity on the padding rows."""
     coo = sp.coo_matrix(a_csr)
     coo.sum_duplicates()
-    a = torch.zeros(coo.shape, dtype=dtype, device=device)
+    n = coo.shape[0]
+    if n_pad is None or n_pad == n:
+        a = torch.zeros(coo.shape, dtype=dtype, device=device)
+    else:
+        a = torch.zeros((n_pad, n_pad), dtype=dtype, device=device)
+        a.diagonal()[n:] = 1.0
     rows = torch.as_tensor(coo.row.astype(np.int64), device=device)
     cols = torch.as_tensor(coo.col.astype(np.int64), device=device)
     a[rows, cols] = torch.as_tensor(coo.data, dtype=dtype, device=device)

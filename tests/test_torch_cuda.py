@@ -17,6 +17,12 @@ package, so it also runs on a GPU machine without them:
   second pass over a; at stage shapes that are multiples of 8 and one that
   is not; P1 on a random inbox table): relative error <= 1e-5,
   one counted launch per call; a CUDA tensor they do not take is refused.
+- Kernel K3 (``csrc/block_trisolve.cu``) against its plain torch version
+  ``block_lu_solve`` on a ``BlockLU`` factor built on the card, at sizes
+  that pad (n % bs != 0) and that do not, block sizes 16 to 256, batch 1
+  (the GEMV instance), 3 and 8 (the panel instance, ragged) and a (2, 3)
+  batch: relative error <= 1e-5, two calls bitwise equal, one counted
+  launch per solve, float64 refused.
 """
 
 import numpy as np
@@ -38,6 +44,8 @@ from flowcontrol_tpu_torch.ops.nl import (
     nonlinear_convection,
     nonlinear_convection_plain,
 )
+from flowcontrol_tpu_torch.ops.trisolve import block_lu_solve_fused
+from flowcontrol_tpu_torch.solvers.block_lu import BlockLU, block_lu_solve
 
 COARSE = dict(yinf=5.0, xinf=15.0, xinfa=-5.0, n1=4.0, n2=2.0, n3=0.8, segments=80)
 
@@ -131,3 +139,30 @@ def test_torch_cuda_p1_matches_plain(cuda, batch):
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
     with pytest.raises(ValueError):
         gather_sum_sub(buf, t.long(), xe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [(), (3,), (8,), (2, 3)], ids=["1", "3", "8", "2x3"])
+@pytest.mark.parametrize("n,bs", [(300, 128), (256, 64), (1000, 256), (50, 16)])
+def test_torch_cuda_k3_matches_plain(cuda, n, bs, batch):
+    rng = np.random.default_rng(n + bs)
+    a = np.eye(n) * 30 + 0.3 * rng.standard_normal((n, n))
+    f = BlockLU(a, bs=bs, dtype=torch.float64, store_dtype=torch.float32, device=cuda)
+    assert f.lu.dtype == torch.float32 and f.n_pad % bs == 0
+    b = torch.as_tensor(rng.standard_normal(batch + (n,)), dtype=torch.float32, device=cuda)
+    before = block_lu_solve_fused.launches
+    got = block_lu_solve_fused(f.tree(), b, bs=bs, n=n)
+    again = block_lu_solve_fused(f.tree(), b, bs=bs, n=n)
+    ref = block_lu_solve(f.tree(), b, bs=bs, n=n)
+    torch.cuda.synchronize()
+    assert block_lu_solve_fused.launches == before + 2
+    assert got.shape == b.shape and got.is_contiguous()
+    assert torch.equal(got, again)  # fixed-order sums: bitwise repeatable
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+    res = torch.as_tensor(a, device=cuda) @ got.double().reshape(-1, n).T - b.double().reshape(
+        -1, n).T
+    assert float(res.norm() / b.double().norm()) <= 1e-5
+    with pytest.raises(TypeError):
+        block_lu_solve_fused(f.tree(), b.double(), bs=bs, n=n)
+    with pytest.raises(ValueError):
+        block_lu_solve_fused(f.tree(), b[..., :-1], bs=bs, n=n)

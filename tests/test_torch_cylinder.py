@@ -5,7 +5,9 @@ integration tests, host LU in float64: base flow (Picard then Newton), then
 10 steps with zero control. The port agrees with a live JAX run to 1e-10
 relative and with the pinned ``regression_values.json`` "cylinder" entries
 at the tolerances ``test_cylinder_regression`` uses (U0_max 1e-8, the rest
-1e-6).
+1e-6). The closed loop through the normal entry points
+(``u = K.step(y, dt); fs.step(u_ctrl=u)``, each package with its own
+``Controller``) agrees the same way.
 """
 
 import json
@@ -152,3 +154,33 @@ def test_torch_cylinder_default_device_is_the_card(monkeypatch, tmp_path):
         CylT.make_default(mesh=mesh, path_out=tmp_path)
     fs = CylT.make_default(mesh=mesh, path_out=tmp_path, device="cpu")
     assert fs.device.type == "cpu"
+
+
+def test_torch_cylinder_closed_loop_entry_points(runs, tmp_path):
+    """``u = K.step(y, dt); y = fs.step(u_ctrl=u)`` as the examples run it:
+    both packages, each with its own Controller, from the same base flow."""
+    from flowcontrol_tpu.core.controller import Controller as ControllerJ
+    from flowcontrol_tpu_torch.core.controller import Controller as ControllerT
+
+    fj0 = runs[0]
+    mats = dict(A=np.array([[-2.0, 1.0], [0.0, -3.0]]), B=np.array([[0.5], [1.0]]),
+                C=np.array([[0.2, 0.1], [0.2, 0.1]]), D=np.zeros((2, 1)))
+    ys = {}
+    for name, cls, mesh_fn, ctrl, kw in (
+        ("j", CylJ, cylinder_mesh_j, ControllerJ, {}),
+        ("t", CylT, cylinder_mesh_t, ControllerT, {"device": "cpu"}),
+    ):
+        fs = cls.make_default(Re=100, num_steps=6, mesh=mesh_fn(**COARSE), path_out=tmp_path / name,
+                              solver_backend="host_lu", precision="f64", **kw)
+        fs.params_ic.amplitude, fs.params_ic.xloc = 1e-2, 2.0  # a perturbation to sense
+        fs._assign_steady_state(fj0.fields.U0, fj0.fields.P0)
+        fs.initialize_time_stepping()
+        k = ctrl.from_matrices(**mats)
+        y, out = fs.y_meas, []
+        for _ in range(6):
+            u = k.step(-y[:1], fs.params_time.dt)
+            y = fs.step(u_ctrl=u)
+            out.append(np.concatenate([y, u]))
+        ys[name] = np.asarray(out)
+    assert np.abs(ys["t"][:, -2:]).max() > 0  # the controller did act
+    assert _rel(ys["t"], ys["j"]) <= TOL

@@ -179,6 +179,9 @@ def test_torch_import_leaves_jax_out():
         "import flowcontrol_tpu_torch.models.cylinder\n"
         "import flowcontrol_tpu_torch.core.stepper\n"
         "import flowcontrol_tpu_torch.ops.nl\n"
+        "import flowcontrol_tpu_torch.ops.trisolve\n"
+        "import flowcontrol_tpu_torch.solvers.block_lu\n"
+        "import flowcontrol_tpu_torch.core.controller\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flowcontrol_tpu' or m.startswith('flowcontrol_tpu.'))\n"

@@ -14,6 +14,15 @@ off), with both orders factored and with the borrowed first step; the
 dense LU's size rule hands larger meshes to it ('dense_lu' and 'auto'); and
 its f32 refinement sweep runs when the measured per-solve error calls for
 one.
+
+The blocked-LU kind (``trisolve="cuda"``: a ``BlockLU`` factor solved by the
+K3 wrapper, on the CPU its plain version) is held to the JAX Stepper with
+``trisolve="pallas"`` (the TPU kernel in interpret mode) with
+``LAPACK_LU_MAX_N`` lowered on both classes. A batch of distinct states and
+controls through ``init_carry`` + ``rollout_open_loop`` equals the
+sequential single-stream runs and the JAX batched rollout, and
+``rollout_closed_loop`` equals the JAX fused rollout and a Python loop of
+``Controller.step`` + ``fs.step``, single and with a stack of controllers.
 """
 
 import numpy as np
@@ -47,12 +56,16 @@ def base_flow(tmp_path_factory):
     return fj.fields.U0.copy(), fj.fields.P0.copy()
 
 
-def _solvers(base_flow, tmp_path, scheme, **extra):
+def _solvers(base_flow, tmp_path, scheme, opts_j=None, opts_t=None, **extra):
+    """The two packages' solvers, prepared from one base flow. ``opts_j`` /
+    ``opts_t`` are stepper options that only one package takes."""
     kw = dict(Re=100, num_steps=5, solver_backend="dense_lu", precision="f64",
               time_scheme=scheme, **extra)
-    fj = CylJ.make_default(mesh=cylinder_mesh_j(**SMALL), path_out=tmp_path / "j", **kw)
+    shared = kw.pop("stepper_options", {})
+    fj = CylJ.make_default(mesh=cylinder_mesh_j(**SMALL), path_out=tmp_path / "j",
+                           stepper_options={**shared, **(opts_j or {})}, **kw)
     ft = CylT.make_default(mesh=cylinder_mesh_t(**SMALL), path_out=tmp_path / "t",
-                           device="cpu", **kw)
+                           device="cpu", stepper_options={**shared, **(opts_t or {})}, **kw)
     for fs in (fj, ft):
         fs._assign_steady_state(*base_flow)
         fs.initialize_time_stepping()
@@ -215,3 +228,157 @@ def test_torch_stepper_multifrontal_refinement_sweep(base_flow, tmp_path, monkey
         runs["f64"].fields.up_
     )
     assert err <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["block", "block_borrowed"])
+def test_torch_stepper_block_lu_matches_jax(base_flow, tmp_path, monkeypatch, case):
+    """trisolve='cuda' above LAPACK_LU_MAX_N: a BlockLU factor (bs=256,
+    n_pad=2816) solved through the K3 wrapper, against the JAX Stepper whose
+    jitted step runs the TPU kernel in interpret mode."""
+    from flowcontrol_tpu_torch.solvers.block_lu import BlockLU
+
+    monkeypatch.setattr(StepperJ, "LAPACK_LU_MAX_N", 300)
+    monkeypatch.setattr(StepperT, "LAPACK_LU_MAX_N", 300)
+    if case == "block_borrowed":
+        monkeypatch.setattr(StepperJ, "DENSE_TWO_FACTOR_MAX_N", 1000)
+        monkeypatch.setattr(StepperT, "DENSE_TWO_FACTOR_MAX_N", 1000)
+    fj, ft = _solvers(base_flow, tmp_path, "bdf",
+                      opts_j={"trisolve": "pallas", "block_lu_bs": 256},
+                      opts_t={"trisolve": "cuda", "block_lu_bs": 256})
+    sj, st = fj._stepper, ft._stepper
+    expected = {"block": ["block", "block"], "block_borrowed": ["borrowed", "block"]}[case]
+    assert sj._solver_kinds == expected and st._solver_kinds == expected
+    assert sj.trisolve == "pallas" and isinstance(st._solvers[-1], BlockLU)
+    assert st._solvers[-1].bs == 256 and st._solvers[-1].n_pad == 2816 and st._refine == {}
+
+    cj = {k: np.asarray(v) for k, v in fj._carry._asdict().items()}
+    carry_j, carry_t = fj._carry, carry_from_numpy(cj, "cpu", torch.float64)
+    step_j = sj.compiled_step()
+    for k in range(5):
+        u = np.array([0.3 * np.cos(k), -0.2 + 0.05 * k])
+        carry_j, out_j = step_j(carry_j, u)
+        carry_t, out_t = st.step(carry_t, u)
+        assert _rel(out_t.x, out_j.x) <= TOL, k
+        assert _rel(out_t.y, out_j.y) <= TOL, k
+        assert abs(float(out_t.dE) - float(out_j.dE)) <= TOL * abs(float(out_j.dE)), k
+
+
+def test_torch_stepper_trisolve_option():
+    """Below LAPACK_LU_MAX_N the kind stays 'lapack' whatever trisolve says;
+    an unknown value raises."""
+    kw = dict(Re=100, mesh=cylinder_mesh_t(**SMALL), solver_backend="dense_lu",
+              precision="f64", device="cpu")
+    fs = CylT.make_default(stepper_options={"trisolve": "cuda"}, **kw)
+    fs._assign_steady_state(np.zeros((fs.space.n_vnodes, 2)), np.zeros(fs.space.n_pressure_dofs))
+    fs.initialize_time_stepping()
+    assert fs.stepper._solver_kinds == ["lapack", "lapack"]
+    bad = CylT.make_default(stepper_options={"trisolve": "xla"}, **kw)
+    bad._assign_steady_state(fs.fields.U0, fs.fields.P0)
+    bad.initialize_time_stepping()
+    with pytest.raises(ValueError, match="trisolve"):
+        bad._prepare_systems()
+
+
+def _batch_of_states(up0):
+    rng = np.random.default_rng(0)
+    return np.stack([up0, up0 * 1.1, up0 * 0.5 + 1e-3 * rng.standard_normal(up0.shape)])
+
+
+@pytest.mark.parametrize("kind", ["dense", "multifrontal"])
+def test_torch_batched_rollout_matches_sequential_and_jax(base_flow, tmp_path, monkeypatch,
+                                                          kind):
+    """A batch of 3 distinct states with distinct controls: one batched
+    rollout equals the three single-stream runs and the JAX batched
+    rollout."""
+    monkeypatch.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", "off")
+    extra = {"stepper_options": {"force_substructure": True}} if kind == "multifrontal" else {}
+    fj, ft = _solvers(base_flow, tmp_path, "bdf", **extra)
+    sj, st = fj._stepper, ft._stepper
+    assert st._solver_kinds == [{"dense": "lapack"}.get(kind, kind)] * 2
+    batch = _batch_of_states(np.asarray(fj._carry.u_n))
+    u_seq = 0.1 * np.random.default_rng(1).standard_normal((4, 3, 2))
+
+    carry_b = st.init_carry(batch)
+    assert carry_b.u_n.shape == batch.shape and carry_b.u_ctrl_prev.shape == (3, 2)
+    carry_b, outs = st.rollout_open_loop(carry_b, u_seq)
+    assert outs.x is None and outs.y.shape == (4, 3, st.ns)
+    assert outs.dE.shape == (4, 3) and outs.diverged.shape == (4, 3)
+    assert not bool(outs.diverged.any()) and carry_b.it == 4
+
+    for b in range(3):
+        carry_1, outs_1 = st.rollout_open_loop(st.init_carry(batch[b]), u_seq[:, b])
+        assert _rel(outs.y[:, b], outs_1.y) <= TOL, b
+        assert _rel(outs.dE[:, b], outs_1.dE) <= TOL, b
+        assert _rel(carry_b.u_n[b], carry_1.u_n) <= TOL, b
+
+    import jax.numpy as jnp
+
+    carry_j, outs_j = sj.make_rollout_open_loop()(sj.init_carry(jnp.asarray(batch)), u_seq)
+    assert _rel(outs.y, outs_j.y) <= TOL and _rel(outs.dE, outs_j.dE) <= TOL
+    assert _rel(carry_b.u_n, carry_j.u_n) <= TOL
+    assert _rel(carry_b.u_ctrl_prev, carry_j.u_ctrl_prev) <= TOL
+
+
+def _controller_mats():
+    return dict(A=np.array([[-1.0, 0.5], [0.0, -2.0]]), B=np.array([[1.0], [0.5]]),
+                C=np.array([[0.3, 0.1], [-0.2, 0.05]]), D=np.array([[0.05], [0.02]]))
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["single", "stack_of_3"])
+def test_torch_rollout_closed_loop_matches_jax_and_python_loop(base_flow, tmp_path, stacked):
+    """The fused plant + controller rollout against the JAX one and against
+    the lockstep loop ``u = K.step(-y, dt); y = fs.step(u)`` of the port's
+    own Controller (sensor 1 fed back). With a stack of 3 controllers
+    (gains 0.5, 1, 1.5) and a batched carry, each member equals its own
+    lockstep loop."""
+    from flowcontrol_tpu.core.controller import Controller as ControllerJ
+    from flowcontrol_tpu_torch.core.controller import Controller as ControllerT
+    from flowcontrol_tpu_torch.core.controller import stack_controllers
+
+    n_steps, gains = 5, ([0.5, 1.0, 1.5] if stacked else [1.0])
+    fj, ft = _solvers(base_flow, tmp_path, "bdf")
+    sj, st = fj._stepper, ft._stepper
+    dt = ft.params_time.dt
+    up0 = np.asarray(fj._carry.u_n) + 1e-2 * np.random.default_rng(2).standard_normal(
+        st.space.n_dofs)
+    sel = np.zeros((1, st.ns))
+    sel[0, 0] = 1.0
+
+    def k_mats_of(controllers):
+        ad, bd, cd, dd = stack_controllers(controllers, dt, dtype=np.float64)
+        mats = (ad, bd @ sel, cd, dd @ sel)
+        return mats if stacked else tuple(m[0] for m in mats)
+
+    kts = [g * ControllerT.from_matrices(**_controller_mats()) for g in gains]
+    kjs = [g * ControllerJ.from_matrices(**_controller_mats()) for g in gains]
+    for got, ref in zip(k_mats_of(kts), k_mats_of(kjs)):
+        assert np.array_equal(got, ref)
+    ups = np.stack([up0 * (1.0 + 0.1 * i) for i in range(len(gains))])
+    ups = ups if stacked else ups[0]
+    y0 = ups @ np.asarray(st.c_rows).T
+
+    carry, (ys, des, us, divs) = st.rollout_closed_loop(
+        st.init_carry(ups), k_mats_of(kts), y0, n_steps, feedback_sign=-1.0)
+    lead = (n_steps, len(gains)) if stacked else (n_steps,)
+    assert ys.shape == lead + (st.ns,) and us.shape == lead + (st.n_act,)
+    assert des.shape == lead and divs.shape == lead and not bool(divs.any())
+
+    import jax.numpy as jnp
+
+    carry_j, (ys_j, des_j, us_j, _) = sj.rollout_closed_loop(
+        sj.init_carry(jnp.asarray(ups)), k_mats_of(kjs), y0, n_steps, feedback_sign=-1.0)
+    assert _rel(ys, ys_j) <= TOL and _rel(us, us_j) <= TOL and _rel(des, des_j) <= TOL
+    assert _rel(carry.u_n, carry_j.u_n) <= TOL
+
+    # the lockstep Python loop, member by member, through the port's step
+    for i, k in enumerate(kts):
+        up_i = ups[i] if stacked else ups
+        c = st.init_carry(up_i)
+        y = up_i @ np.asarray(st.c_rows).T
+        k.reset()
+        for t in range(n_steps):
+            u = k.step(-y[:1], dt)
+            c, out = st.step(c, u)
+            y = out.y.numpy()
+            got_y, got_u = (ys[t, i], us[t, i]) if stacked else (ys[t], us[t])
+            assert _rel(got_u, u) <= TOL and _rel(got_y, y) <= TOL, (i, t)

@@ -52,12 +52,14 @@ fails or no CUDA device is present:
     (the pivoted factor has left the card): the blocked LU factored in f64
     on the card (seconds, peak device memory), solve kinds
     ``['borrowed', 'block']``, 200 ``fs.step`` calls with phase 3's
-    controls. All y and dE finite; K1 launched steps + 1 times and K3 once
-    per solve (21 on the borrowed first step, then one per step); y[-1]
-    within 1e-3 of the dense path's;
+    controls. All y and dE finite; K1 launched steps + 1 times and K3
+    3 nb - 2 times per solve (21 solves on the borrowed first step, then
+    one per step; one call of the C entry point makes a solve's launches);
+    y[-1] within 1e-3 of the dense path's;
 11. K3 against its plain version on that factor, n = 56,383, bs = 1024,
-    random right-hand sides, batch 1 and 4: max |kernel - plain| / max
-    |plain| <= 1e-5 and two calls bitwise equal. Device time per solve
+    random right-hand sides, batch 1, 4 and 256 (every width the paths
+    give it): max |kernel - plain| / max |plain| <= 1e-5 and two calls
+    bitwise equal. Device time per solve
     (torch.profiler) of K3 and plain at batch 1 and 256, each beside its
     bound and phase 5's library time;
 12. accuracy: from the block path's carry after step 10, 10 more f32 steps
@@ -82,7 +84,8 @@ fails or no CUDA device is present:
 
 The line before the last is a JSON object describing each kernel (K1, K2,
 K3 at batch 1 and at batch 256, P1): its launches on its main path, its
-largest error against its plain version, and the device times and least
+largest error against its plain version (a K3 row's is the one measured
+at that row's batch width), and the device times and least
 time (``bound_ms``) of the work of one main-path call (K1), of one solve's
 launches (K2, P1) or of one solve (K3), from this run's shapes: the bytes
 each call must move at 3.35 TB/s or its operations at the 67 TFLOP/s f32
@@ -438,9 +441,11 @@ def phase_mf_kernels(mf) -> dict:
 
 
 def phase_k3(blu, library_ms: dict) -> dict:
-    """K3 against its plain version on the block path's factor, batch 1 and
-    4; device times of K3 and plain at batch 1 and BATCH beside the bound.
-    Returns one result per timed batch width."""
+    """K3 against its plain version on the block path's factor, batch 1, 4
+    and BATCH (the widths the single-stream and the batched paths give it;
+    BATCH spans several column tiles of the panel kernel); device times of
+    K3 and plain at batch 1 and BATCH beside the bound. Returns one result
+    per timed batch width, each with the error measured at its own width."""
     from flowcontrol_tpu_torch.ops.trisolve import block_lu_solve_fused
     from flowcontrol_tpu_torch.solvers.block_lu import block_lu_solve
 
@@ -450,8 +455,8 @@ def phase_k3(blu, library_ms: dict) -> dict:
     def rand(b):
         return torch.as_tensor(rng.standard_normal((b, n)), dtype=torch.float32, device=dev)
 
-    max_rel = max_abs = 0.0
-    for b in (1, 4):
+    max_abs = {}
+    for b in (1, 4, BATCH):
         rhs = rand(b)
         got = block_lu_solve_fused(blu.tree(), rhs, bs=bs, n=n)
         again = block_lu_solve_fused(blu.tree(), rhs, bs=bs, n=n)
@@ -463,11 +468,12 @@ def phase_k3(blu, library_ms: dict) -> dict:
             f"(tol {K3_TOL:g}), max|k-p| = {abs_err:.3e}, two calls bitwise equal: {same}")
         if not (rel <= K3_TOL and same and bool(torch.isfinite(got).all())):
             raise AssertionError(f"K3 at B={b}: error {rel:.3e} against plain, repeatable {same}")
-        max_rel, max_abs = max(max_rel, rel), max(max_abs, abs_err)
+        max_abs[b] = abs_err
+        del got, again, ref
     out = {}
     for b in (1, BATCH):
         rhs = rand(b)
-        r = dict(max_abs_err=max_abs, library_ms=library_ms[b])
+        r = dict(max_abs_err=max_abs[b], library_ms=library_ms[b])
         r["ms"] = device_ms([lambda: block_lu_solve_fused(blu.tree(), rhs, bs=bs, n=n)], reps=5)
         r["plain_ms"] = device_ms([lambda: block_lu_solve(blu.tree(), rhs, bs=bs, n=n)], reps=5)
         # one solve reads every block of lu but the diagonal ones, and dinv
@@ -604,7 +610,11 @@ def main() -> int:
     from flowcontrol_tpu_torch.ops.cuda_build import build_all
     from flowcontrol_tpu_torch.ops.mf_matvec import MF_KERNELS, gather_sum_sub, stack_matvec
     from flowcontrol_tpu_torch.ops.nl import NL_KERNEL, nonlinear_convection
-    from flowcontrol_tpu_torch.ops.trisolve import TRISOLVE_KERNEL, block_lu_solve_fused
+    from flowcontrol_tpu_torch.ops.trisolve import (
+        TRISOLVE_KERNEL,
+        block_lu_solve_fused,
+        launches_per_solve,
+    )
     from flowcontrol_tpu_torch.solvers.block_lu import BlockLU
 
     dev = torch.device("cuda", 0)
@@ -742,7 +752,8 @@ def main() -> int:
     st3 = blk["st"]
     blu = st3._solvers[st3._order_idx[2]]
     k3_solves = (1 + st3.BORROW_ITERS) + (NUM_STEPS - 1)
-    expected = [NUM_STEPS + 1, 0, 0, k3_solves]
+    k3_per = launches_per_solve(blu.nb)
+    expected = [NUM_STEPS + 1, 0, 0, k3_solves * k3_per]
     y_rel = float(np.abs(blk["ys"][-1] - dense["ys"][-1]).max() / np.abs(dense["ys"][-1]).max())
     log(f"phase 10: solve kinds {st3._solver_kinds} (expected ['borrowed', 'block']), dtype "
         f"{st3.dtype}, refinement sweeps {st3._refine}; BlockLU n_pad {blu.n_pad}, bs {blu.bs}, "
@@ -756,7 +767,7 @@ def main() -> int:
         f"{card}); y[-1] = {blk['ys'][-1].tolist()}, relative to the dense path's {y_rel:.3e} "
         f"(tol 1e-3), dE[-1] = {blk['de'][-1]:.6e}")
     log(f"phase 10: launches K1/K2/P1/K3 {blk['launches']} (expected {expected}: "
-        f"{k3_solves} solves, one K3 call each)")
+        f"{k3_solves} solves of {k3_per} K3 launches, all made by one call of the C entry point)")
     if st3._solver_kinds != ["borrowed", "block"] or not isinstance(blu, BlockLU):
         raise AssertionError(f"solve kinds {st3._solver_kinds}")
     if blk["launches"] != expected:
@@ -776,7 +787,7 @@ def main() -> int:
     open_blk = phase_batched_open(st3, up, counters, "phase 13 (block)")
     open_mf = phase_batched_open(st2, up, counters, "phase 13 (multifrontal)")
     solves_mf = (1 + st2.BORROW_ITERS) + (BATCH_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
-    expected_open = {"block": [BATCH_STEPS + 1, 0, 0, solves_b],
+    expected_open = {"block": [BATCH_STEPS + 1, 0, 0, solves_b * k3_per],
                      "multifrontal": [BATCH_STEPS + 1, solves_mf * k2_per, solves_mf * p1_per, 0]}
     for name, r in (("block", open_blk), ("multifrontal", open_mf)):
         log(f"phase 13 ({name}): launches K1/K2/P1/K3 {r['launches']} "
@@ -791,7 +802,7 @@ def main() -> int:
                                      "phase 14 (multifrontal)")
     per_step_mf = 1 + st2._refine.get(oi2, 0)
     expected_closed = {
-        "block": [BATCH_STEPS, 0, 0, BATCH_STEPS],
+        "block": [BATCH_STEPS, 0, 0, BATCH_STEPS * k3_per],
         "multifrontal": [BATCH_STEPS, BATCH_STEPS * per_step_mf * k2_per,
                          BATCH_STEPS * per_step_mf * p1_per, 0],
     }

@@ -48,7 +48,6 @@ from flowcontrol_tpu_torch.config import device_memory_budget_bytes, require_dev
 from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
 from flowcontrol_tpu_torch.fem.bc import BCSet
 from flowcontrol_tpu_torch.ops.nl import NLTables, nonlinear_convection
-from flowcontrol_tpu_torch.ops.trisolve import block_lu_solve_fused
 from flowcontrol_tpu_torch.parallel.dofsharding import mixed_dof_coordinates
 from flowcontrol_tpu_torch.solvers.block_lu import BlockLU
 from flowcontrol_tpu_torch.solvers.direct import DeviceDenseLU, HostSparseLU
@@ -329,8 +328,6 @@ class Stepper:
         s = self._solvers[oi]
         if isinstance(s, HostSparseLU):  # CPU only (see __post_init__)
             return torch.as_tensor(s.solve(rhs.numpy()), dtype=rhs.dtype)
-        if isinstance(s, BlockLU):
-            return block_lu_solve_fused(s.tree(), rhs, bs=s.bs, n=s.n)
         return s.solve(rhs)
 
     def _solve(self, order, rhs):

@@ -11,9 +11,10 @@ its signature. Its plain torch version is
 The wrapper takes the plain version for CPU tensors and launches the kernel
 for CUDA tensors, or raises on what the kernel does not take (float32 only,
 one device, contiguous factors, a block size that is a multiple of 16); it
-never falls back. ``block_lu_solve_fused.launches`` counts the solves that
-went through the kernel (one count per call: the C entry point issues all
-of a solve's block-row launches itself).
+never falls back. ``block_lu_solve_fused.launches`` counts kernel launches:
+the C entry point makes all of a solve's block-row launches itself,
+:func:`launches_per_solve` of them, and the wrapper adds that many where it
+calls it.
 """
 
 from __future__ import annotations
@@ -40,6 +41,12 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 #: K3's shared library, built from csrc/block_trisolve.cu on first launch.
 TRISOLVE_KERNEL = CudaLibrary("block_trisolve", "block_trisolve.cu", _declare)
+
+
+def launches_per_solve(nb: int) -> int:
+    """Kernel launches of one K3 solve over ``nb`` block rows: nb - 1 forward
+    updates, nb products with ``dinv`` and nb - 1 backward updates."""
+    return 3 * nb - 2
 
 
 def _solve_cuda(lu, dinv, b, bs: int, n: int) -> torch.Tensor:
@@ -79,7 +86,7 @@ def _solve_cuda(lu, dinv, b, bs: int, n: int) -> torch.Tensor:
     if rc != 0:
         msg = lib.block_trisolve_error_string(rc).decode()
         raise RuntimeError(f"K3 block_lu_solve_fused launch failed: {msg} (cudaError {rc})")
-    block_lu_solve_fused.launches += 1
+    block_lu_solve_fused.launches += launches_per_solve(nb)
     return out[:n].T.contiguous().reshape(batch + (n,))
 
 

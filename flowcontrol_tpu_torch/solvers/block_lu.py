@@ -24,7 +24,8 @@ The factorization's products are plain large matrix products
 (``torch.matmul``/``addmm_``, ``torch.linalg.inv``); it updates the trailing
 matrix in place, slice by slice. :func:`block_lu_solve` is the plain torch
 version of K3: the tests and the CPU use it, and nothing on the card's
-stepping path does.
+stepping path does (:meth:`BlockLU.solve` goes through the kernel's
+wrapper, which launches K3 for a factor on the card or raises).
 """
 
 from __future__ import annotations
@@ -117,7 +118,11 @@ class BlockLU:
         return (self.lu, self.dinv)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        return block_lu_solve(self.tree(), b, bs=self.bs, n=self.n)
+        """Kernel K3 for a factor on the card, its plain version on the CPU."""
+        # imported here: ops/trisolve.py imports this module for the plain version
+        from flowcontrol_tpu_torch.ops.trisolve import block_lu_solve_fused
+
+        return block_lu_solve_fused(self.tree(), b, bs=self.bs, n=self.n)
 
 
 def block_lu_from_numpy(lu, dinv, bs: int, n: int, device, dtype: torch.dtype) -> BlockLU:

@@ -44,7 +44,7 @@ from flowcontrol_tpu_torch.ops.nl import (
     nonlinear_convection,
     nonlinear_convection_plain,
 )
-from flowcontrol_tpu_torch.ops.trisolve import block_lu_solve_fused
+from flowcontrol_tpu_torch.ops.trisolve import block_lu_solve_fused, launches_per_solve
 from flowcontrol_tpu_torch.solvers.block_lu import BlockLU, block_lu_solve
 
 COARSE = dict(yinf=5.0, xinf=15.0, xinfa=-5.0, n1=4.0, n2=2.0, n3=0.8, segments=80)
@@ -155,7 +155,10 @@ def test_torch_cuda_k3_matches_plain(cuda, n, bs, batch):
     again = block_lu_solve_fused(f.tree(), b, bs=bs, n=n)
     ref = block_lu_solve(f.tree(), b, bs=bs, n=n)
     torch.cuda.synchronize()
-    assert block_lu_solve_fused.launches == before + 2
+    assert block_lu_solve_fused.launches == before + 2 * launches_per_solve(f.nb)
+    # the factor's own solve goes through the kernel too, never the plain version
+    assert torch.equal(f.solve(b), got)
+    assert block_lu_solve_fused.launches == before + 3 * launches_per_solve(f.nb)
     assert got.shape == b.shape and got.is_contiguous()
     assert torch.equal(got, again)  # fixed-order sums: bitwise repeatable
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5

@@ -33,10 +33,11 @@ fails or no CUDA device is present:
    flow; the host factorization split, stage count, factor bytes, measured
    per-solve error and solve kinds (``['borrowed', 'multifrontal']``), then
    200 ``fs.step`` calls with phase 3's controls. All y and dE finite; K1
-   launched steps + 1 times, K2 and P1 exactly the launches of one solve
-   (from the stage list) times the solves (1 + 20 borrowed sweeps on step
-   1, then one per step, doubled by a refinement sweep when the factor asks
-   for one; none in ``init_carry``);
+   launched steps + 1 times, and every single-stream solve one launch of
+   kernel F (``csrc/mf_fused.cu``): F launched once per solve (1 + 20
+   borrowed sweeps on step 1, then one per step, doubled by a refinement
+   sweep when the factor asks for one; none in ``init_carry``), K2 and P1
+   never;
 7. K2 and P1 against their plain versions on that factor's stacks and inbox
    tables, every stage, batch 1 (the main path's) and 4: max |kernel -
    plain| / max |plain| <= 1e-5. Kernel, plain and (for K2) ``torch.bmm``
@@ -64,7 +65,8 @@ fails or no CUDA device is present:
     bound and phase 5's library time;
 12. accuracy: from the block path's carry after step 10, 10 more f32 steps
     against the host float64 loop: relative field error <= 5e-4;
-13. batched open loop on the block and the multifrontal path: 256 copies
+13. batched open loop on the block and the multifrontal path (the
+    per-stage sweep: K2 and P1, F never): 256 copies
     of the state with distinct controls, 20 steps of
     ``rollout_open_loop``: aggregate steps/s over the 19 BDF2 steps, every
     member finite, exact launch counts, and y of members 0 and 255 within
@@ -80,16 +82,48 @@ fails or no CUDA device is present:
     ``Controller.step`` + ``fs.step`` loop with gain 0.5;
 15. where the block path's step goes, single stream (10 ``fs.step`` calls)
     and at batch 256 (3 ``Stepper.step`` calls): torch.profiler busy
-    share, top kernels, launches per step.
+    share, top kernels, launches per step;
+16. kernel F against its plain version (``multifrontal_solve_fused_plain``,
+    the descriptor walk in torch) and against the per-stage K2/P1 sweep on
+    phase 6's factor, rows 1, 4 and 8: max |F - plain| / max |plain| <= 1e-5,
+    two calls bitwise equal; F's device time (CUDA events around launches
+    queued behind a device sleep) and the sweep's (torch.profiler) at each
+    width, with the back-to-back spans a caller sees, and at rows 1 plain's
+    time beside F's bound, grid and grid syncs; P2, P3 and P4 on their own at the
+    probe's shapes (v (8, 1024) and (8, 128) lanes; offsets 640 and 256),
+    bitwise equal to their plain versions;
+17. the open cavity, single stream: ``CavityFlowSolver.make_default(Re=7500)``
+    on ``cuda`` (f32) at its generated default mesh (~120k dofs, past the
+    dense range, so the multifrontal solve without ``force_substructure``);
+    the base flow loaded from the committed file when its mesh checksum
+    matches, else Picard (10) then Newton (10) on the host, and the log
+    says which; host factorization split, stages, factor bytes, per-solve
+    error, refinement sweeps; solve kinds ``['borrowed', 'multifrontal']``;
+    200 ``fs.step`` calls with u = [0.5] for 10 steps and 0 after. All y and
+    dE finite; K1 steps + 1 launches, F one per solve, K2 and P1 none;
+18. F against plain and the sweep on the cavity factor, as in phase 16;
+19. accuracy: from the cavity carry after step 10, 10 f32 steps against the
+    host float64 splu loop: relative field error <= 5e-4;
+20. the cavity, batched open loop: B = 64 copies of the cavity state after
+    its 200 steps, controls ``linspace(0.5, 1.5, 64)``, ``init_carry`` and 20
+    steps of ``rollout_open_loop`` through the per-stage sweep (K2, P1; F
+    never, exact counts); aggregate steps/s over the 19 BDF2 steps; y of
+    members 0 and 63 within 1e-4 of its peak against single-stream runs
+    (which go through F);
+21. where the cavity step's time goes, and the cylinder multifrontal step's
+    with F: torch.profiler over 10 ``fs.step`` calls each.
 
 The line before the last is a JSON object describing each kernel (K1, K2,
-K3 at batch 1 and at batch 256, P1): its launches on its main path, its
-largest error against its plain version (a K3 row's is the one measured
-at that row's batch width), and the device times and least
-time (``bound_ms``) of the work of one main-path call (K1), of one solve's
-launches (K2, P1) or of one solve (K3), from this run's shapes: the bytes
-each call must move at 3.35 TB/s or its operations at the 67 TFLOP/s f32
-rate, whichever is larger. The last line is ``{"ok": true, "device": {...}}``.
+K3 at batch 1 and at batch 256, P1, F at the cylinder's and the cavity's
+factor, P2, P3, P4): its launches on its main path, its largest error
+against its plain version (a K3 row's is the one measured at that row's
+batch width), and the device times and least time (``bound_ms``) of the
+work of one main-path call (K1, F, P2, P3, P4), of one solve's launches
+(K2, P1) or of one solve (K3), from this run's shapes: the bytes each call
+must move at 3.35 TB/s or its operations at the 67 TFLOP/s f32 rate,
+whichever is larger. F's rows also carry ``sweep_ms``, the per-stage
+sweep's device time for the same solve. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -110,6 +144,10 @@ NDOFS_REF = 56_383
 K1_TOL = 1e-5
 MF_TOL = 1e-5
 K3_TOL = 1e-5
+F_TOL = 1e-5
+CAV_RE = 7500
+CAV_U = 0.5  # the cavity's control for its first CTRL_STEPS steps
+CAV_BATCH = 64  # the JAX bench's cavity batch width
 BATCH = 256
 BATCH_STEPS = 20
 MEMBER_TOL = 1e-4  # a batch member against its single-stream run (f32, another summation order)
@@ -120,9 +158,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 
 
-def controls(i: int) -> np.ndarray:
-    """The main paths' control sequence: u = [0.3, -0.2] for CTRL_STEPS steps, then 0."""
-    return np.array([0.3, -0.2]) if i < CTRL_STEPS else np.zeros(2)
+def controls(i: int, u_on=(0.3, -0.2)) -> np.ndarray:
+    """The main paths' control sequence: u = u_on for CTRL_STEPS steps, then 0."""
+    return np.asarray(u_on, dtype=float) * (i < CTRL_STEPS)
 
 
 def log(msg: str) -> None:
@@ -170,6 +208,26 @@ def device_ms(fns, reps: int = 20) -> float:
     if not us > 0:
         raise AssertionError("the profiler recorded no device time")
     return us / reps / 1e3
+
+
+def queued_ms(fn, reps: int = 20, sleep_cycles: int = 100_000_000) -> tuple[float, float]:
+    """Device time per call from CUDA events around ``reps`` calls queued
+    behind a device sleep (~50 ms at the H100's clock): the host enqueues
+    them while the card sleeps, so no dispatch gap falls between the events.
+    Returns (ms per call, host ms to enqueue all calls); the first is a
+    device time only while the second stays under the sleep."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_ms
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -263,7 +321,7 @@ def profile_steps(fs, tag: str, steps: int = 10, step=None, what: str = "fs.step
     per step."""
     from torch.profiler import ProfilerActivity, profile
 
-    zero = np.zeros(2)
+    zero = np.zeros(fs.params_control.actuator_number)
     step = step or (lambda: fs.step(zero))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -313,10 +371,10 @@ def phase_breakdown(fs, st, dev) -> dict:
     return lib
 
 
-def run_path(fs, counters) -> dict:
+def run_path(fs, counters, u_on=(0.3, -0.2)) -> dict:
     """Factorization + init_carry, then NUM_STEPS fs.step calls with the
-    phase-3 controls; every launch count set to 0 just before, read just
-    after."""
+    controls u_on, then 0; every launch count set to 0 just before, read
+    just after."""
     from flowcontrol_tpu_torch.core.stepper import carry_to_numpy
 
     for c in counters:
@@ -331,7 +389,7 @@ def run_path(fs, counters) -> dict:
         if i == CTRL_STEPS:
             torch.cuda.synchronize()
             t_steps0 = time.perf_counter()
-        ys.append(fs.step(controls(i)))
+        ys.append(fs.step(controls(i, u_on)))
         if i + 1 == CTRL_STEPS:
             carry10 = carry_to_numpy(fs._carry)
     torch.cuda.synchronize()
@@ -496,13 +554,15 @@ def member_carry(carry, b: int):
     return StepCarry(*(f[b].clone() for f in carry[:-1]), it=carry.it)
 
 
-def phase_batched_open(st, up: np.ndarray, counters, tag: str) -> dict:
-    """BATCH copies of the state ``up`` with distinct controls through
-    ``init_carry`` + ``rollout_open_loop``; members 0 and BATCH-1 against
-    single-stream runs with their controls."""
-    amps = np.linspace(0.5, 1.5, BATCH)
-    u_seq = np.tile(amps[:, None] * np.array([0.3, -0.2]), (BATCH_STEPS, 1, 1))
-    up_b = torch.as_tensor(up, dtype=st.dtype, device=st.device).expand(BATCH, -1).contiguous()
+def phase_batched_open(st, up: np.ndarray, counters, tag: str, batch: int = BATCH,
+                       u_dir=(0.3, -0.2)) -> dict:
+    """``batch`` copies of the state ``up`` with distinct controls
+    (``linspace(0.5, 1.5, batch)`` times ``u_dir``) through ``init_carry`` +
+    ``rollout_open_loop``; members 0 and batch-1 against single-stream runs
+    with their controls."""
+    amps = np.linspace(0.5, 1.5, batch)
+    u_seq = np.tile(amps[:, None] * np.asarray(u_dir), (BATCH_STEPS, 1, 1))
+    up_b = torch.as_tensor(up, dtype=st.dtype, device=st.device).expand(batch, -1).contiguous()
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -512,23 +572,23 @@ def phase_batched_open(st, up: np.ndarray, counters, tag: str) -> dict:
     t0 = time.perf_counter()
     carry, rest = st.rollout_open_loop(carry, u_seq[1:])
     torch.cuda.synchronize()
-    sps = (BATCH_STEPS - 1) * BATCH / (time.perf_counter() - t0)
+    sps = (BATCH_STEPS - 1) * batch / (time.perf_counter() - t0)
     launches = [c.launches for c in counters]
     y, de = torch.cat([first.y, rest.y]), torch.cat([first.dE, rest.dE])
     finite = bool(torch.isfinite(y).all() and torch.isfinite(de).all()
                   and torch.isfinite(carry.u_n).all())
-    if not finite or bool(rest.diverged.any()) or y.shape != (BATCH_STEPS, BATCH, st.ns):
+    if not finite or bool(rest.diverged.any()) or y.shape != (BATCH_STEPS, batch, st.ns):
         raise AssertionError(f"{tag}: a batch member is not finite")
     spread = float((y[-1, 0] - y[-1, -1]).abs().max())
     y_errs, de_errs, x_errs = [], [], []
-    for b in (0, BATCH - 1):
+    for b in (0, batch - 1):
         c1, o1 = st.rollout_open_loop(st.init_carry(up), u_seq[:, b])
         y_errs.append(rel_err(y[:, b], o1.y)[0])
         de_errs.append(rel_err(de[:, b], o1.dE)[0])
         x_errs.append(float((carry.u_n[b] - c1.u_n).norm() / c1.u_n.norm()))
-    log(f"{tag}: B={BATCH}, {BATCH_STEPS} steps: {sps:.1f} aggregate steps/s over the "
+    log(f"{tag}: B={batch}, {BATCH_STEPS} steps: {sps:.1f} aggregate steps/s over the "
         f"{BATCH_STEPS - 1} BDF2 steps; all members finite; y[-1] of members 0 and "
-        f"{BATCH - 1} differ by {spread:.3e}; members 0 and {BATCH - 1} against single-stream "
+        f"{batch - 1} differ by {spread:.3e}; members 0 and {batch - 1} against single-stream "
         f"runs: y max|b-s|/max|s| {y_errs[0]:.3e}, {y_errs[1]:.3e} (tol {MEMBER_TOL:g}); "
         f"measured, not held: dE {de_errs[0]:.3e}, {de_errs[1]:.3e}, final mixed state "
         f"(relative L2) {x_errs[0]:.3e}, {x_errs[1]:.3e}; "
@@ -601,13 +661,172 @@ def phase_batched_closed(fs, st, carry, y0, counters, tag: str) -> dict:
     return dict(sps=sps, launches=launches)
 
 
+def phase_fused(mf, tag: str) -> dict:
+    """Kernel F against its plain version and the per-stage K2/P1 sweep on
+    ``mf``, rows 1, 4 and 8 (random right-hand sides): relative error, two
+    calls bitwise equal; F's and the sweep's times per solve at each width,
+    and at 1 (the main path's) the plain version's and the bound."""
+    from flowcontrol_tpu_torch.ops.mf_fused import (
+        fused_grid,
+        grid_syncs,
+        multifrontal_solve_fused,
+        multifrontal_solve_fused_plain,
+    )
+    from flowcontrol_tpu_torch.solvers.multifrontal import multifrontal_solve
+
+    dev = mf.device
+    rng = np.random.default_rng(4)
+    res = {"max_abs_err": 0.0}
+    for rows in (1, 4, 8):
+        b = torch.as_tensor(rng.standard_normal((rows, mf.n)), dtype=torch.float32, device=dev)
+        got = multifrontal_solve_fused(mf, b)
+        again = multifrontal_solve_fused(mf, b)
+        plain = multifrontal_solve_fused_plain(mf, b)
+        sweep = multifrontal_solve(mf, b)
+        torch.cuda.synchronize()
+        rel, abs_err = rel_err(got, plain)
+        rel_sweep = rel_err(got, sweep)[0]
+        same = torch.equal(got, again)
+        log(f"{tag}: F rows={rows} n={mf.n}: max|F-plain|/max|plain| = {rel:.3e} (tol {F_TOL:g}), "
+            f"max|F-plain| = {abs_err:.3e}; against the per-stage K2/P1 sweep {rel_sweep:.3e}; "
+            f"two calls bitwise equal: {same}")
+        if not (rel <= F_TOL and rel_sweep <= F_TOL and same and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{tag}: F at rows={rows}: {rel:.3e} against plain, "
+                                 f"{rel_sweep:.3e} against the sweep, repeatable {same}")
+        res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+    # device time of F: CUDA events around launches queued behind a device
+    # sleep (torch.profiler's per-kernel time under-reads back-to-back
+    # cooperative launches: 0.31-0.40 ms at the cylinder against 0.62 from
+    # these events and 0.64-0.66 inside a profiled step); the sweep's from
+    # the profiler (its host enqueue outlasts any sleep). Both also as
+    # CUDA-event spans of back-to-back calls, dispatch gaps included: the
+    # time per solve a caller sees. Widths 1 (the main path's), 4 and 8.
+    widths = {}
+    for rows in (1, 4, 8):
+        b = torch.as_tensor(rng.standard_normal((rows, mf.n)), dtype=torch.float32, device=dev)
+        f_ms, f_host = queued_ms(lambda: multifrontal_solve_fused(mf, b))
+        if not f_host < 40.0:
+            raise AssertionError(f"{tag}: F's calls took {f_host:.1f} ms to enqueue, past the sleep")
+        w = dict(ms=f_ms, sweep_ms=device_ms([lambda: multifrontal_solve(mf, b)]),
+                 span=cuda_time_ms(lambda: multifrontal_solve_fused(mf, b), reps=20),
+                 sweep_span=cuda_time_ms(lambda: multifrontal_solve(mf, b), reps=20))
+        if rows == 1:
+            w["profiler_ms"] = device_ms([lambda: multifrontal_solve_fused(mf, b)])
+            w["plain_ms"] = device_ms([lambda: multifrontal_solve_fused_plain(mf, b)], reps=5)
+        widths[rows] = w
+        log(f"{tag}: rows={rows} per solve: F device {w['ms']:.4f} ms (queued events), per-stage "
+            f"sweep device {w['sweep_ms']:.4f} ms (profiler); back-to-back spans with dispatch: "
+            f"F {w['span']:.4f} ms, sweep {w['sweep_span']:.4f} ms")
+    res.update(ms=widths[1]["ms"], plain_ms=widths[1]["plain_ms"],
+               sweep_ms=widths[1]["sweep_ms"], widths=widths)
+    # one solve reads every factor stack, the index tables and the
+    # permutations once, b once, and writes x; each stack value is one
+    # multiply-add per right-hand side, each inbox entry one add
+    tables = mf.flat_bd.nbytes + mf.flat_inbox.nbytes + mf.perm.nbytes + mf.ipos.nbytes
+    nbytes = mf.factor_bytes + tables + mf.desc.nbytes + 2 * 4 * mf.n
+    flops = 2.0 * mf.factor_bytes / 4 + mf.flat_inbox.numel()
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+    g = fused_grid()
+    log(f"{tag}: F rows=1 device time per solve {res['ms']:.4f} ms (profiler "
+        f"{widths[1]['profiler_ms']:.4f} ms), plain {res['plain_ms']:.4f} ms, per-stage sweep "
+        f"{res['sweep_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+        f"{nbytes / 1e9:.4f} GB, {nbytes / (res['ms'] * 1e-3) / 1e12:.2f} TB/s achieved); grid "
+        f"{g['blocks']} blocks of 256 threads ({g['per_sm']} per SM x {g['sms']} SMs), "
+        f"{grid_syncs(mf)} grid syncs per solve, {len(mf.stages)} stages")
+    return res
+
+
+def phase_probes(dev) -> dict:
+    """P2, P3 and P4 on their own at the probe's shapes against their plain
+    versions, bitwise; device times beside the bound."""
+    from flowcontrol_tpu_torch.ops.mf_fused import (
+        dynamic_offset_accum_store,
+        dynamic_offset_accum_store_plain,
+        dynamic_slice,
+        dynamic_slice_plain,
+        take_along_axis_lanes,
+        take_along_axis_lanes_plain,
+    )
+
+    rng = np.random.default_rng(0)  # the probe's own inputs
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def i32(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+    n, w = 1024, 128
+    v1 = f32(rng.standard_normal(n))
+    rng.integers(0, n, (8, w))  # the probe's 2-D table (P1's shape), drawn in its order
+    v2 = f32(rng.standard_normal((8, n)))
+    lanes = i32(rng.integers(0, n, (8, w)))
+    s_ds, s_acc = i32([640]), i32([256])
+    lanes64 = lanes.long()
+    out = {}
+    cases = {
+        "P2": (lambda: take_along_axis_lanes(v2, lanes),
+               lambda: take_along_axis_lanes_plain(v2, lanes),
+               lambda: torch.gather(v2, 1, lanes64),
+               # idx and out once, and the v values the lanes really read
+               4.0 * (2 * 8 * w + int(torch.unique(lanes64 + n * torch.arange(8, device=dev)[:, None]).numel())),
+               0.0),
+        "P3": (lambda: dynamic_slice(v1, s_ds, w),
+               lambda: dynamic_slice_plain(v1, s_ds, w), None, 4.0 * (2 * w + 1), 0.0),
+        "P4": (lambda: dynamic_offset_accum_store(v1.clone(), s_acc, v1[:w]),
+               lambda: dynamic_offset_accum_store_plain(v1.clone(), s_acc, v1[:w]), None,
+               4.0 * (3 * w + 1), float(w)),
+    }
+    for name, (kern, plain, lib, nbytes, flops) in cases.items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        r = {"max_abs_err": float((got - ref).abs().max())}
+        r["ms"], r["plain_ms"] = device_ms([kern]), device_ms([plain])
+        r["library_ms"] = device_ms([lib]) if lib is not None else None
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
+        lib_s = f", torch.gather {r['library_ms']:.4f} ms" if lib is not None else ""
+        log(f"phase 16: {name} at the probe's shapes: bitwise equal to plain: {same}; device "
+            f"time kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib_s}, bound "
+            f"{r['bound_ms']:.3e} ms ({r['bound_by']})")
+        if not same:
+            raise AssertionError(f"{name} differs from its plain version by {r['max_abs_err']}")
+        out[name] = r
+    return out
+
+
+def cavity_base_flow(fs) -> tuple[str, float]:
+    """The cavity's base flow: the committed file when its mesh checksum
+    matches this mesh, else Picard then Newton on the host (the JAX tests'
+    and bench's recipe). Returns (source, seconds)."""
+    from flowcontrol_tpu_torch.models.cavity import committed_baseflow
+
+    t0 = time.perf_counter()
+    path = committed_baseflow(fs)
+    if path is not None:
+        fs.load_steady_state(path)
+        return f"loaded {path.name} (mesh checksum matches)", time.perf_counter() - t0
+    fs.compute_steady_state(u_ctrl=[0.0], method="picard", max_iter=10, tol=1e-7)
+    fs.compute_steady_state(u_ctrl=[0.0], method="newton", initial_guess=fs.fields.UP0,
+                            max_iter=10)
+    return ("computed on the host: Picard (10) + Newton (10); no committed file matches "
+            "this mesh's checksum"), time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
               "needs a CUDA device", file=sys.stderr)
         return 1
+    import flowcontrol_tpu_torch.solvers.multifrontal as mf_module
+    from flowcontrol_tpu_torch.models.cavity import CavityFlowSolver
     from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
     from flowcontrol_tpu_torch.ops.cuda_build import build_all
+    from flowcontrol_tpu_torch.ops.mf_fused import (
+        MF_FUSED_KERNEL,
+        fused_grid,
+        multifrontal_solve_fused,
+    )
     from flowcontrol_tpu_torch.ops.mf_matvec import MF_KERNELS, gather_sum_sub, stack_matvec
     from flowcontrol_tpu_torch.ops.nl import NL_KERNEL, nonlinear_convection
     from flowcontrol_tpu_torch.ops.trisolve import (
@@ -617,6 +836,7 @@ def main() -> int:
     )
     from flowcontrol_tpu_torch.solvers.block_lu import BlockLU
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -627,14 +847,19 @@ def main() -> int:
     log(f"phase 1: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {kind}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    build_all([NL_KERNEL, MF_KERNELS, TRISOLVE_KERNEL])
+    build_all([NL_KERNEL, MF_KERNELS, TRISOLVE_KERNEL, MF_FUSED_KERNEL])
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s wall (parallel nvcc)")
-    for name, lib in (("K1", NL_KERNEL), ("K2+P1", MF_KERNELS), ("K3", TRISOLVE_KERNEL)):
+    for name, lib in (("K1", NL_KERNEL), ("K2+P1", MF_KERNELS), ("K3", TRISOLVE_KERNEL),
+                      ("F+P2+P3+P4", MF_FUSED_KERNEL)):
         log(f"phase 1: {name} built from {lib.source.name} in {lib.build_seconds:.2f} s "
             f"-> {lib.library_path().name}")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"phase 1: ptxas: {line.strip()}")
+    for rows in (1, 2, 4, 8):
+        g = fused_grid(rows)
+        log(f"phase 1: F's cooperative grid for {rows} right-hand side(s): {g['blocks']} blocks "
+            f"of 256 threads ({g['per_sm']} per SM x {g['sms']} SMs)")
 
     # ── phase 3 set-up (mesh) first: phase 2 runs on the same mesh ───────────
     t0 = time.perf_counter()
@@ -660,7 +885,8 @@ def main() -> int:
         raise AssertionError(f"cd0 {fs.cd0} differs from {CD0_REF} by {cd_rel:.2e}")
 
     fs.initialize_time_stepping()
-    counters = (nonlinear_convection, stack_matvec, gather_sum_sub, block_lu_solve_fused)
+    counters = (nonlinear_convection, stack_matvec, gather_sum_sub, block_lu_solve_fused,
+                multifrontal_solve_fused)
     dense = run_path(fs, counters)
     st = dense["st"]
     k1_launches = dense["launches"][0]
@@ -672,10 +898,11 @@ def main() -> int:
         f"{NUM_STEPS - CTRL_STEPS} ({card}); y[-1] = {dense['ys'][-1].tolist()}, "
         f"dE[-1] = {dense['de'][-1]:.6e}")
     log(f"phase 3: launches K1 {k1_launches} (expected {NUM_STEPS + 1}), K2 "
-        f"{dense['launches'][1]}, P1 {dense['launches'][2]}, K3 {dense['launches'][3]} (expected 0)")
-    if dense["launches"] != [NUM_STEPS + 1, 0, 0, 0]:
+        f"{dense['launches'][1]}, P1 {dense['launches'][2]}, K3 {dense['launches'][3]}, F "
+        f"{dense['launches'][4]} (expected 0)")
+    if dense["launches"] != [NUM_STEPS + 1, 0, 0, 0, 0]:
         raise AssertionError(f"dense path launches {dense['launches']}, "
-                             f"expected {[NUM_STEPS + 1, 0, 0, 0]}")
+                             f"expected {[NUM_STEPS + 1, 0, 0, 0, 0]}")
 
     # ── phase 4: accuracy against host f64 ───────────────────────────────────
     host = HostF64Loop(fs)
@@ -701,7 +928,7 @@ def main() -> int:
     mf = st2._solvers[oi2]
     k2_per, p1_per = mf.launches_per_solve()
     solves = (1 + st2.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
-    expected = [NUM_STEPS + 1, solves * k2_per, solves * p1_per, 0]
+    expected = [NUM_STEPS + 1, 0, 0, 0, solves]
     t = mf.timings
     log(f"phase 6: solve kinds {st2._solver_kinds} (expected ['borrowed', 'multifrontal']), "
         f"dtype {st2.dtype}, refinement sweeps {st2._refine}")
@@ -718,9 +945,10 @@ def main() -> int:
         f"{NUM_STEPS - CTRL_STEPS} (dense path {dense['sps']:.2f}; {card}); "
         f"y[-1] = {mfp['ys'][-1].tolist()} (dense path {dense['ys'][-1].tolist()}), "
         f"dE[-1] = {mfp['de'][-1]:.6e}")
-    log(f"phase 6: launches K1/K2/P1/K3 {mfp['launches']} (expected {expected}: {solves} solves "
-        f"x {k2_per} K2 and {p1_per} P1 per solve)")
-    if st2._solver_kinds != ["borrowed", "multifrontal"]:
+    log(f"phase 6: launches K1/K2/P1/K3/F {mfp['launches']} (expected {expected}: {solves} "
+        f"solves, each one launch of F; the per-stage sweep would make {k2_per} K2 and "
+        f"{p1_per} P1 launches per solve)")
+    if st2._solver_kinds != ["borrowed", "multifrontal"] or not mf.takes_fused(1):
         raise AssertionError(f"solve kinds {st2._solver_kinds}")
     if mfp["launches"] != expected:
         raise AssertionError(f"multifrontal path launches {mfp['launches']}, expected {expected}")
@@ -753,7 +981,7 @@ def main() -> int:
     blu = st3._solvers[st3._order_idx[2]]
     k3_solves = (1 + st3.BORROW_ITERS) + (NUM_STEPS - 1)
     k3_per = launches_per_solve(blu.nb)
-    expected = [NUM_STEPS + 1, 0, 0, k3_solves * k3_per]
+    expected = [NUM_STEPS + 1, 0, 0, k3_solves * k3_per, 0]
     y_rel = float(np.abs(blk["ys"][-1] - dense["ys"][-1]).max() / np.abs(dense["ys"][-1]).max())
     log(f"phase 10: solve kinds {st3._solver_kinds} (expected ['borrowed', 'block']), dtype "
         f"{st3.dtype}, refinement sweeps {st3._refine}; BlockLU n_pad {blu.n_pad}, bs {blu.bs}, "
@@ -766,7 +994,7 @@ def main() -> int:
         f"{NUM_STEPS - CTRL_STEPS} (dense path {dense['sps']:.2f}, multifrontal {mfp['sps']:.2f}; "
         f"{card}); y[-1] = {blk['ys'][-1].tolist()}, relative to the dense path's {y_rel:.3e} "
         f"(tol 1e-3), dE[-1] = {blk['de'][-1]:.6e}")
-    log(f"phase 10: launches K1/K2/P1/K3 {blk['launches']} (expected {expected}: "
+    log(f"phase 10: launches K1/K2/P1/K3/F {blk['launches']} (expected {expected}: "
         f"{k3_solves} solves of {k3_per} K3 launches, all made by one call of the C entry point)")
     if st3._solver_kinds != ["borrowed", "block"] or not isinstance(blu, BlockLU):
         raise AssertionError(f"solve kinds {st3._solver_kinds}")
@@ -787,10 +1015,11 @@ def main() -> int:
     open_blk = phase_batched_open(st3, up, counters, "phase 13 (block)")
     open_mf = phase_batched_open(st2, up, counters, "phase 13 (multifrontal)")
     solves_mf = (1 + st2.BORROW_ITERS) + (BATCH_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
-    expected_open = {"block": [BATCH_STEPS + 1, 0, 0, solves_b * k3_per],
-                     "multifrontal": [BATCH_STEPS + 1, solves_mf * k2_per, solves_mf * p1_per, 0]}
+    expected_open = {"block": [BATCH_STEPS + 1, 0, 0, solves_b * k3_per, 0],
+                     "multifrontal": [BATCH_STEPS + 1, solves_mf * k2_per, solves_mf * p1_per,
+                                      0, 0]}
     for name, r in (("block", open_blk), ("multifrontal", open_mf)):
-        log(f"phase 13 ({name}): launches K1/K2/P1/K3 {r['launches']} "
+        log(f"phase 13 ({name}): launches K1/K2/P1/K3/F {r['launches']} "
             f"(expected {expected_open[name]})")
         if r["launches"] != expected_open[name]:
             raise AssertionError(f"batched open loop ({name}) launches {r['launches']}")
@@ -802,12 +1031,12 @@ def main() -> int:
                                      "phase 14 (multifrontal)")
     per_step_mf = 1 + st2._refine.get(oi2, 0)
     expected_closed = {
-        "block": [BATCH_STEPS, 0, 0, BATCH_STEPS * k3_per],
+        "block": [BATCH_STEPS, 0, 0, BATCH_STEPS * k3_per, 0],
         "multifrontal": [BATCH_STEPS, BATCH_STEPS * per_step_mf * k2_per,
-                         BATCH_STEPS * per_step_mf * p1_per, 0],
+                         BATCH_STEPS * per_step_mf * p1_per, 0, 0],
     }
     for name, r in (("block", closed_blk), ("multifrontal", closed_mf)):
-        log(f"phase 14 ({name}): launches K1/K2/P1/K3 {r['launches']} "
+        log(f"phase 14 ({name}): launches K1/K2/P1/K3/F {r['launches']} "
             f"(expected {expected_closed[name]})")
         if r["launches"] != expected_closed[name]:
             raise AssertionError(f"batched closed loop ({name}) launches {r['launches']}")
@@ -822,18 +1051,100 @@ def main() -> int:
     profile_steps(fs3, f"phase 15 (B={BATCH})", steps=3, step=lambda: st3.step(carry_b, u_b),
                   what="Stepper.step")
 
-    def row(name, source, replaces, launches, r, library_ms):
+    # ── phase 16: F against plain and the per-stage sweep; P2, P3, P4 ────────
+    f_cyl = phase_fused(mf, "phase 16")
+    probes = phase_probes(dev)
+    del fs3, st3, blu, carry_b, open_blk, blk["st"]  # the block factor leaves the card
+    fs._stepper = fs._carry = None
+    torch.cuda.empty_cache()
+
+    # ── phase 17: the open cavity, single stream ─────────────────────────────
+    t0 = time.perf_counter()
+    fc = CavityFlowSolver.make_default(Re=CAV_RE, num_steps=NUM_STEPS, device="cuda")
+    t_mesh_c = time.perf_counter() - t0
+    base_src, t_base_c = cavity_base_flow(fc)
+    fc.initialize_time_stepping()
+    cav = run_path(fc, counters, u_on=(CAV_U,))
+    stc = cav["st"]
+    oic = stc._order_idx[2]
+    mfc = stc._solvers[oic]
+    refine_c = stc._refine.get(oic, 0)
+    solves_c = (1 + stc.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + refine_c)
+    expected = [NUM_STEPS + 1, 0, 0, 0, solves_c]
+    t = mfc.timings
+    log(f"phase 17: cavity Re={CAV_RE}: mesh {fc.mesh.num_cells} cells, {fc.space.n_dofs} dofs "
+        f"({fc.space.n_vel_dofs} velocity + {fc.space.n_pressure_dofs} pressure); mesh+spaces "
+        f"{t_mesh_c:.2f} s; base flow {base_src} in {t_base_c:.2f} s, max|U0| "
+        f"{np.abs(fc.fields.U0).max():.6f}; stepper_options {fc.params_solver.stepper_options}")
+    log(f"phase 17: solve kinds {stc._solver_kinds} (expected ['borrowed', 'multifrontal']), "
+        f"dtype {stc.dtype}; host multifrontal s: ordering+f64 factorization "
+        f"{t['ordering+factorization']:.2f}, repack {t['repack']:.2f}, error probe "
+        f"{t['measure_err']:.2f}, tables {t['tables']:.2f}, upload {t['upload']:.2f}, total "
+        f"{t['total']:.2f}; factorization+init_carry {cav['t_factor']:.2f}; peak device memory "
+        f"{cav['peak_gb']:.2f} GB")
+    log(f"phase 17: {len(mfc.stages)} stages, factor stacks {mfc.factor_bytes / 1e9:.4f} GB, "
+        f"{mfc.total_slots} slots, {mfc.total_contrib} contributions; measured per-solve error "
+        f"{mfc.solve_err:.3e} (zero-sweep ceiling {mfc.ZERO_SWEEP_ERR:g}), recommended_refine "
+        f"{mfc.recommended_refine}, refinement sweeps {stc._refine}; (m, e, b) per stage "
+        f"{[(s.m, s.e, s.b) for s in mfc.stages]}")
+    log(f"phase 17: {NUM_STEPS} steps (u = [{CAV_U}] for {CTRL_STEPS}, then 0), single-stream "
+        f"{cav['sps']:.2f} steps/s over the last {NUM_STEPS - CTRL_STEPS} ({card}); y[-1] = "
+        f"{cav['ys'][-1].tolist()}, dE[-1] = {cav['de'][-1]:.6e}")
+    log(f"phase 17: launches K1/K2/P1/K3/F {cav['launches']} (expected {expected}: {solves_c} "
+        f"solves, each one launch of F)")
+    if (stc._solver_kinds != ["borrowed", "multifrontal"] or fc.params_solver.stepper_options
+            or not mfc.takes_fused(1)):
+        raise AssertionError(f"cavity solve kinds {stc._solver_kinds}, options "
+                             f"{fc.params_solver.stepper_options}")
+    if cav["launches"] != expected:
+        raise AssertionError(f"cavity launches {cav['launches']}, expected {expected}")
+
+    # ── phase 18: F against plain on the cavity factor ───────────────────────
+    f_cav = phase_fused(mfc, "phase 18")
+
+    # ── phase 19: accuracy against host f64 ──────────────────────────────────
+    accuracy(HostF64Loop(fc), stc, cav["carry10"], "phase 19")
+    log(f"phase 19: refinement sweeps per solve {refine_c} (the factor's recommended_refine: "
+        f"per-solve error {mfc.solve_err:.3e} against the {mfc.ZERO_SWEEP_ERR:g} ceiling)")
+
+    # ── phase 20: the cavity, batched open loop (the per-stage sweep) ─────────
+    up_c = fc._carry.u_n.double().cpu().numpy()
+    open_c = phase_batched_open(stc, up_c, counters, "phase 20", batch=CAV_BATCH, u_dir=(1.0,))
+    k2c, p1c = mfc.launches_per_solve()
+    solves_bc = (1 + stc.BORROW_ITERS) + (BATCH_STEPS - 1) * (1 + refine_c)
+    expected = [BATCH_STEPS + 1, solves_bc * k2c, solves_bc * p1c, 0, 0]
+    log(f"phase 20: launches K1/K2/P1/K3/F {open_c['launches']} (expected {expected}: "
+        f"{solves_bc} solves x {k2c} K2 and {p1c} P1)")
+    if open_c["launches"] != expected or mfc.takes_fused(CAV_BATCH):
+        raise AssertionError(f"cavity batched launches {open_c['launches']}, expected {expected}")
+
+    # ── phase 21: where the cavity step goes; the cylinder's with F and without
+    profile_steps(fc, "phase 21 (cavity, F)")
+    profile_steps(fs2, "phase 21 (cylinder, F)")
+    fused_max_rows, mf_module.FUSED_MAX_ROWS = mf_module.FUSED_MAX_ROWS, 0
+    try:  # the same steps through the per-stage sweep
+        profile_steps(fc, "phase 21 (cavity, per-stage sweep)")
+        profile_steps(fs2, "phase 21 (cylinder, per-stage sweep)")
+    finally:
+        mf_module.FUSED_MAX_ROWS = fused_max_rows
+
+    def row(name, source, replaces, launches, r, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": library_ms}
+                "bound_by": r["bound_by"], "library_ms": library_ms, **extra}
 
     src = "flowcontrol_tpu_torch/csrc/"
+    f_launches = mfp["launches"][4] + cav["launches"][4]
+    k2_launches = open_mf["launches"][1] + closed_mf["launches"][1] + open_c["launches"][1]
+    p1_launches = open_mf["launches"][2] + closed_mf["launches"][2] + open_c["launches"][2]
+    probe_src = "tools/pallas_gather_probe.py"
+    log(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f} s wall")
     print(json.dumps({"kernels": [
         row("K1 nl_convection", src + "nl_convection.cu",
             "flowcontrol_tpu/ops/pallas_nl.py:136", k1_launches, k1, None),
         row("K2 stack_matvec", src + "mf_sweep.cu",
-            "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", mfp["launches"][1], mfk["K2"],
+            "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", k2_launches, mfk["K2"],
             mfk["K2"]["library_ms"]),
         row("K3 block_lu_solve_fused B=1", src + "block_trisolve.cu",
             "flowcontrol_tpu/ops/pallas_trisolve.py:127", blk["launches"][3], k3[1],
@@ -841,8 +1152,22 @@ def main() -> int:
         row(f"K3 block_lu_solve_fused B={BATCH}", src + "block_trisolve.cu",
             "flowcontrol_tpu/ops/pallas_trisolve.py:127", k3_batched_launches, k3[BATCH],
             k3[BATCH]["library_ms"]),
-        row("P1 gather_sum_sub", src + "mf_sweep.cu",
-            "tools/pallas_gather_probe.py:50", mfp["launches"][2], mfk["P1"], None),
+        row("P1 gather_sum_sub", src + "mf_sweep.cu", probe_src + ":50", p1_launches,
+            mfk["P1"], None),
+        row(f"F multifrontal_solve_fused cylinder n={mf.n}", src + "mf_fused.cu",
+            "flowcontrol_tpu/solvers/multifrontal.py:1202", mfp["launches"][4], f_cyl, None,
+            sweep_ms=f_cyl["sweep_ms"]),
+        row(f"F multifrontal_solve_fused cavity n={mfc.n}", src + "mf_fused.cu",
+            "flowcontrol_tpu/solvers/multifrontal.py:1202", cav["launches"][4], f_cav, None,
+            sweep_ms=f_cav["sweep_ms"]),
+        # P2-P4 run on the main path as device functions inside every F
+        # launch; their times are their own kernels' at the probe's shapes
+        row("P2 take_along_axis_lanes", src + "mf_fused.cu", probe_src + ":65", f_launches,
+            probes["P2"], probes["P2"]["library_ms"], launched_inside="F"),
+        row("P3 dynamic_slice_smem_offset", src + "mf_fused.cu", probe_src + ":77", f_launches,
+            probes["P3"], None, launched_inside="F"),
+        row("P4 dynamic_offset_accum_store", src + "mf_fused.cu", probe_src + ":89",
+            f_launches, probes["P4"], None, launched_inside="F"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -30,7 +30,9 @@ keeps mesh order everywhere. The direct solve is a dense LU while its f64
 factorization fits the device (``trisolve="torch"``: pivoted, cuBLAS
 triangular solves; ``trisolve="cuda"``: the blocked LU of
 ``solvers/block_lu.py`` solved by kernel K3), else the multifrontal solve
-(``solvers/multifrontal.py``, kernels K2 and P1 on CUDA). The substructured
+(``solvers/multifrontal.py``: on CUDA kernel F, the whole solve in one
+launch, for up to 8 right-hand sides, and kernels K2 and P1 per stage for
+wider batches; each wrapper counts its launches). The substructured
 and Krylov solves are later slices (ROADMAP.md).
 """
 
@@ -211,7 +213,7 @@ class Stepper:
         if gp.shape[0]:
             profiles[: gp.shape[0], :] = gp[:, bcs.dofs]
 
-        d: dict = {"lift_act": [], "lift_static": [], "a_bc": {}}
+        d: dict = {"lift_act": [], "lift_static": [], "a_bc": {}, "a_refine": {}}
         self._solvers: list = []
         self._solver_kinds: list = []
         #: refinement sweeps per order index (the multifrontal factor's
@@ -250,15 +252,19 @@ class Stepper:
                 self._solver_kinds.append("lapack" if n <= self.LAPACK_LU_MAX_N else "block")
             elif self.backend == "dense_lu":
                 # past the dense range: host-f64 multifrontal factors stored
-                # in dt; one f32 refinement sweep when the measured per-solve
+                # in dt; one refinement sweep when the measured per-solve
                 # error leaves the zero-sweep class (reference:
-                # core/stepper.py:428-458, 530-544)
+                # core/stepper.py:428-458, 530-544). The sweep's residual is
+                # taken in f64 (A kept in f64 on the device): an f32
+                # residual cannot take the error below cond(A)·eps_f32, and
+                # at the Re=7500 cavity that floor is the pressure's ~5e-4
                 mf = MultifrontalLU(a_bc, mixed_dof_coordinates(space), dev_t, dtype=dt)
                 self._solvers.append(mf)
                 self._solver_kinds.append("multifrontal")
                 if dt == torch.float32 and mf.recommended_refine:
                     self._refine[self._order_idx[order]] = mf.recommended_refine
-                    d["a_bc"][self._order_idx[order]] = csr_to_device(a_bc, dev_t, dt)
+                    d["a_refine"][self._order_idx[order]] = csr_to_device(
+                        a_bc, dev_t, torch.float64)
             else:
                 self._solvers.append(HostSparseLU(a_bc))
                 self._solver_kinds.append("host")
@@ -342,8 +348,15 @@ class Stepper:
                 x = x + self._solve_once(oi2, rhs - sparse_matvec(a1, x))
             return x
         x = self._solve_once(oi, rhs)
-        for _ in range(self._refine.get(oi, 0)):
-            x = x + self._solve_once(oi, rhs - sparse_matvec(self._dev["a_bc"][oi], x))
+        sweeps = self._refine.get(oi, 0)
+        if sweeps:
+            # mixed-precision refinement: residual and update in f64, the
+            # correction solved with the f32 factor
+            a64, b64, x64 = self._dev["a_refine"][oi], rhs.double(), x.double()
+            for _ in range(sweeps):
+                r = (b64 - sparse_matvec(a64, x64)).to(self.dtype)
+                x64 = x64 + self._solve_once(oi, r).double()
+            x = x64.to(self.dtype)
         return x
 
     def _order_of(self, carry: StepCarry):

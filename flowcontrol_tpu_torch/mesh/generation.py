@@ -10,10 +10,11 @@ with pure numpy + scipy.spatial.Delaunay:
 3. Delaunay-triangulate, drop triangles outside the domain (or inside holes),
 4. Laplacian-smooth interior vertices.
 
-The cylinder's 3-zone wake grading mirrors the reference generator
-(ref: src/utils/mesh_generation/cylinder.py:11-25). Transcribed from
-``flowcontrol_tpu/mesh/generation.py`` (the cylinder and the structured
-rectangles; the other flows' domains come with their models).
+Zone layouts mirror the reference generators: cylinder 3-zone wake grading
+(ref: src/utils/mesh_generation/cylinder.py:11-25), cavity Sipp-Lebedev
+layout (cavity.py). Transcribed from ``flowcontrol_tpu/mesh/generation.py``
+(the cylinder, the open cavity and the structured rectangles; the lid
+cavity's and the pinball's domains come with their models).
 """
 
 from __future__ import annotations
@@ -103,6 +104,36 @@ def _boundary_points(p0, p1, h) -> np.ndarray:
     n = max(1, int(round(np.linalg.norm(p1 - p0) / h)))
     t = np.arange(n) / n
     return p0[None, :] + t[:, None] * (p1 - p0)[None, :]
+
+
+def _boundary_points_graded(p0, p1, h_fn) -> np.ndarray:
+    """Points along p0->p1 with LOCAL spacing h_fn(point) (excl. endpoint p1).
+
+    Boundary spacing must track the adjacent interior density, otherwise
+    Delaunay boundary recovery cuts corners where fine interior points sit
+    closer to the wall than the wall points are to each other. Spacing is
+    halved within 2h of the segment endpoints: small corner edges have small
+    circumcircles, which keeps the corner triangles Delaunay and prevents
+    corner chamfering.
+    """
+    p0, p1 = np.asarray(p0, float), np.asarray(p1, float)
+    length = np.linalg.norm(p1 - p0)
+    direction = (p1 - p0) / length
+    ts = [0.0]
+    hs = []
+    while True:
+        pt = p0 + ts[-1] * direction
+        h = float(h_fn(pt[None, :])[0])
+        dist_end = min(ts[-1], length - ts[-1])
+        if dist_end < 2.0 * h:
+            h = max(0.5 * h, 1e-12)
+        hs.append(h)
+        t_next = ts[-1] + h
+        if t_next >= length - 0.4 * h:
+            break
+        ts.append(t_next)
+    pts = p0[None, :] + np.asarray(ts)[:, None] * direction[None, :]
+    return pts, np.asarray(hs[: len(ts)])
 
 
 def _rect_boundary(xmin, ymin, xmax, ymax, h) -> np.ndarray:
@@ -270,4 +301,95 @@ def cylinder_mesh(**mesh_param) -> Mesh2D:
     def inside(p):
         return np.sqrt(p[:, 0] ** 2 + p[:, 1] ** 2) > r
 
+    return _delaunay_mesh(points, inside, fixed)
+
+
+# ── Open cavity (channel + square cavity) ────────────────────────────────────
+
+CAVITY_DEFAULT_PARAM = {
+    # Sipp-Lebedev-2007 open-cavity layout (ref: mesh_generation/cavity.py):
+    # channel y in [0, 0.5], x in [-1.2, 2.5]; unit square cavity below
+    # x in [0, 1], y in [-1, 0].
+    "xinfa": -1.2,
+    "xinf": 2.5,
+    "yinf": 0.5,
+    "x_cav_left": 0.0,
+    "x_cav_right": 1.0,
+    "y_cav_bottom": -1.0,
+    "n_coarse": 20.0,
+    "n_mid": 50.0,
+    "n_fine": 100.0,
+}
+
+
+def cavity_mesh(**mesh_param) -> Mesh2D:
+    prm = {**CAVITY_DEFAULT_PARAM, **mesh_param}
+    h0, h1, h2 = 1 / prm["n_coarse"], 1 / prm["n_mid"], 1 / prm["n_fine"]
+    xa, xi, yi = prm["xinfa"], prm["xinf"], prm["yinf"]
+    xl, xr, yb = prm["x_cav_left"], prm["x_cav_right"], prm["y_cav_bottom"]
+
+    def in_fine(p):  # shear layer over the cavity mouth
+        return (
+            (p[:, 0] > xl - 0.3)
+            & (p[:, 0] < xr + 0.3)
+            & (p[:, 1] > -0.35)
+            & (p[:, 1] < 0.25)
+        )
+
+    def in_mid(p):
+        in_channel_mid = (p[:, 0] > xl - 0.7) & (p[:, 0] < xr + 0.8) & (p[:, 1] < yi)
+        in_cavity = (p[:, 0] > xl) & (p[:, 0] < xr) & (p[:, 1] > yb) & (p[:, 1] < 0)
+        return in_channel_mid | in_cavity
+
+    def h_local(p):
+        """Local target spacing — boundary sampling must match the interior."""
+        p = np.atleast_2d(p)
+        h = np.full(len(p), h0)
+        h[in_mid(p)] = h1
+        h[in_fine(p)] = h2
+        return h
+
+    # boundary polyline of the L-shaped domain (channel + cavity), sampled
+    # with the local zone spacing
+    poly = [
+        (xa, 0.0),
+        (xl, 0.0),
+        (xl, yb),
+        (xr, yb),
+        (xr, 0.0),
+        (xi, 0.0),
+        (xi, yi),
+        (xa, yi),
+    ]
+    corners = np.asarray(poly, dtype=HOST_DTYPE)
+    # corners first (never merged away), labeled with the refined spacing
+    bnd = [(corners, 0.5 * h_local(corners))]
+    for k in range(len(poly)):
+        p0, p1 = poly[k], poly[(k + 1) % len(poly)]
+        pts_seg, hs_seg = _boundary_points_graded(p0, p1, h_local)
+        bnd.append((pts_seg[1:], hs_seg[1:]))  # corner already included
+    fixed = np.concatenate([b[0] for b in bnd])
+
+    lat0 = _hex_lattice(xa, xi, 0.0, yi, h0)
+    lat0 = lat0[~in_mid(lat0)]
+    lat_m1 = _hex_lattice(xl - 0.7, xr + 0.8, 0.0, yi, h1)
+    lat_m2 = _hex_lattice(xl, xr, yb, 0.0, h1)
+    lat_m = np.concatenate([lat_m1, lat_m2])
+    lat_m = lat_m[in_mid(lat_m) & ~in_fine(lat_m)]
+    lat_f = _hex_lattice(xl - 0.3, xr + 0.3, -0.35, 0.25, h2)
+    lat_f = lat_f[in_fine(lat_f)]
+
+    def inside(p):
+        in_channel = (
+            (p[:, 0] > xa) & (p[:, 0] < xi) & (p[:, 1] > 0) & (p[:, 1] < yi)
+        )
+        in_cav = (p[:, 0] > xl) & (p[:, 0] < xr) & (p[:, 1] > yb) & (p[:, 1] < 0)
+        return in_channel | in_cav
+
+    # clip LATTICE points strictly inside; boundary points are exempt
+    # (corner points fail single-axis probes and must never be clipped)
+    lats = []
+    for lat, h in [(lat_f, h2), (lat_m, h1), (lat0, h0)]:
+        lats.append((lat[inside(lat)], h))
+    points = _merge_point_groups(bnd + lats)
     return _delaunay_mesh(points, inside, fixed)

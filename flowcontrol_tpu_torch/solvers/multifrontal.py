@@ -21,6 +21,9 @@ past the size where one dense factor fits the device: factor storage is
   inbox segments and K2 (:func:`stack_matvec`) for ``inv·xe``, ``fbi·z``
   and ``ginv·xb``; slices, the boundary gather and the permutations stay
   plain torch, as they stay outside any Pallas kernel in the JAX package.
+  On CUDA, up to ``FUSED_MAX_ROWS`` right-hand sides take kernel F
+  instead (``ops/mf_fused.py``): the whole solve in one launch, walking a
+  stage descriptor array over the same stacks and tables.
 
 The host half is transcribed from the JAX package and gives bitwise the
 same tree, stacks and tables. Not carried over: the disk factor cache and
@@ -40,10 +43,22 @@ import numpy as np
 import scipy.linalg as sla
 import torch
 
+from flowcontrol_tpu_torch.ops.mf_fused import (
+    HEAD_FIELDS,
+    MAX_SEGS,
+    SEG_FIELDS,
+    STAGE_WORDS,
+    multifrontal_solve_fused,
+)
 from flowcontrol_tpu_torch.ops.mf_matvec import gather_sum_sub, stack_matvec
 from flowcontrol_tpu_torch.solvers.tridiag import graph_levels
 
 logger = logging.getLogger(__name__)
+
+#: most right-hand sides a solve on CUDA sends through kernel F (one launch
+#: for the whole solve); wider batches take the per-stage sweep, whose K2
+#: reads each factor stack once per 8 right-hand sides
+FUSED_MAX_ROWS = 8
 
 
 @dataclass
@@ -567,8 +582,15 @@ class MultifrontalLU:
         return tables
 
     def _finalize_device(self, tables, payload):
-        """Put the permutations, the per-stage tables and the payload's
-        factor stacks (one layout, the canonical one) on ``self.device``."""
+        """Put the permutations, the index tables and the payload's factor
+        stacks (one layout, the canonical one) on ``self.device``.
+
+        Every stage's ``inv``, ``ginv`` and ``fbi`` is a view of one flat
+        float allocation (``flat_stacks``), its ``bd`` a view of one flat
+        int64 table (``flat_bd``) and its inbox tables views of one flat
+        int32 table (``flat_inbox``): the per-stage sweep and kernel F read
+        the same bytes. ``desc`` is F's stage descriptor array
+        (``ops/mf_fused.py``: ``STAGE_WORDS`` int64 words per stage)."""
         dev = self.device
         self.n_depths = int(tables["n_depths"])
         self.total_slots = int(tables["total"])
@@ -581,27 +603,71 @@ class MultifrontalLU:
         # trailing zero
         self.perm = idx(np.append(tables["perm"], self.n))
         self.ipos = idx(tables["ipos"])
-        self.stages: list[MFStage] = []
+
+        # host layout of the flat arrays: element offsets of every piece
+        # (stacks aligned to 64 floats, so each starts 256-byte aligned)
+        statics = []
+        n_stack = n_bd = n_inbox = 0
         for di, (st_h, stat) in enumerate(zip(tables["stages"], tables["static"])):
-            e, b, m, off, c_off, segs = stat
-            segs = tuple((int(m0), int(m1), bool(f)) for (m0, m1, f) in segs)
-            inbox = []
-            ti = 0
+            e, b, m, off, c_off = (int(v) for v in stat[:5])
+            segs = tuple((int(m0), int(m1), bool(f)) for (m0, m1, f) in stat[5])
+            o_stack = []
+            for size in (m * e * e, m * e * b, m * b * e):  # inv, ginv, fbi
+                o_stack.append(n_stack)
+                n_stack += -(-size // 64) * 64
+            o_bd, n_bd = n_bd, n_bd + m * b
+            seg_rec, ti = [], 0
             for (m0, m1, tabbed) in segs:
+                kmax = 0
+                o_ib = 0
                 if tabbed:
                     # the host table has one trailing column for the
                     # segment's pad row; the sweep reads the first (m1-m0)·e
-                    ln = (m1 - m0) * int(e)
-                    inbox.append(idx(st_h["inbox_ts"][ti][:, :ln], torch.int32))
+                    kmax = st_h["inbox_ts"][ti].shape[0]
+                    o_ib, n_inbox = n_inbox, n_inbox + kmax * (m1 - m0) * e
                     ti += 1
+                seg_rec.append((m0, m1, int(tabbed), o_ib, kmax))
+            statics.append((e, b, m, off, c_off, segs, o_stack, o_bd, seg_rec))
+        dt = self.dtype
+        self.flat_stacks = torch.zeros(n_stack, dtype=dt, device=dev)
+        self.flat_bd = torch.empty(n_bd, dtype=torch.int64, device=dev)
+        self.flat_inbox = torch.empty(n_inbox, dtype=torch.int32, device=dev)
+
+        desc = np.zeros((self.n_depths, STAGE_WORDS), dtype=np.int64)
+        self.stages: list[MFStage] = []
+        for di, (st_h, s) in enumerate(zip(tables["stages"], statics)):
+            e, b, m, off, c_off, segs, o_stack, o_bd, seg_rec = s
+            if len(seg_rec) > MAX_SEGS:
+                raise ValueError(f"stage {di} has {len(seg_rec)} inbox segments, F takes "
+                                 f"{MAX_SEGS}")
+            views = []
+            for o, name, shape in zip(o_stack, ("inv", "ginv", "fbi"),
+                                      ((m, e, e), (m, e, b), (m, b, e))):
+                v = self.flat_stacks[o: o + m * shape[1] * shape[2]].view(shape)
+                v.copy_(torch.as_tensor(payload[f"{name}_{di}"]))
+                views.append(v)
+            bd = self.flat_bd[o_bd: o_bd + m * b].view(m, b)
+            bd.copy_(torch.as_tensor(st_h["bd"].astype(np.int64)))
+            inbox, ti = [], 0
+            for (m0, m1, tabbed, o_ib, kmax) in seg_rec:
+                if tabbed:
+                    ln = (m1 - m0) * e
+                    t = self.flat_inbox[o_ib: o_ib + kmax * ln].view(kmax, ln)
+                    t.copy_(torch.as_tensor(
+                        np.ascontiguousarray(st_h["inbox_ts"][ti][:, :ln]).astype(np.int32)))
+                    inbox.append(t)
+                    ti += 1
+            desc[di, : len(HEAD_FIELDS)] = (e, b, m, off, c_off, *o_stack, o_bd, len(seg_rec))
+            for k, rec in enumerate(seg_rec):
+                base = len(HEAD_FIELDS) + k * len(SEG_FIELDS)
+                desc[di, base: base + len(SEG_FIELDS)] = rec
             self.stages.append(MFStage(
-                e=int(e), b=int(b), m=int(m), off=int(off), c_off=int(c_off), segs=segs,
-                inv=torch.as_tensor(payload[f"inv_{di}"], device=dev),
-                ginv=torch.as_tensor(payload[f"ginv_{di}"], device=dev),
-                fbi=torch.as_tensor(payload[f"fbi_{di}"], device=dev),
-                bd=idx(st_h["bd"]),
-                inbox=tuple(inbox),
+                e=e, b=b, m=m, off=off, c_off=c_off, segs=segs,
+                inv=views[0], ginv=views[1], fbi=views[2], bd=bd, inbox=tuple(inbox),
             ))
+        self.desc = idx(desc)
+        #: the largest stage's slots (m·e): kernel F's scratch for z
+        self.max_stage_slots = max(s.m * s.e for s in self.stages)
 
     # ── public API ──────────────────────────────────────────────────────────
 
@@ -618,7 +684,19 @@ class MultifrontalLU:
         p1 = sum(len(s.inbox) for s in self.stages)
         return k2, p1
 
+    def takes_fused(self, rows: int) -> bool:
+        """Whether a solve of ``rows`` right-hand sides goes through kernel
+        F (one launch) rather than the per-stage sweep (K2 and P1)."""
+        return self.device.type == "cuda" and rows <= FUSED_MAX_ROWS
+
     def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """x = A^-1 b for b (..., n): kernel F for at most
+        ``FUSED_MAX_ROWS`` rows on CUDA, else the per-stage sweep."""
+        rows = 1
+        for d in b.shape[:-1]:
+            rows *= int(d)
+        if b.device.type == "cuda" and self.takes_fused(rows):
+            return multifrontal_solve_fused(self, b)
         return multifrontal_solve(self, b)
 
 

@@ -23,16 +23,27 @@ package, so it also runs on a GPU machine without them:
   (the GEMV instance), 3 and 8 (the panel instance, ragged) and a (2, 3)
   batch: relative error <= 1e-5, two calls bitwise equal, one counted
   launch per solve, float64 refused.
+- Kernel F (``csrc/mf_fused.cu``) against its plain torch version
+  ``multifrontal_solve_fused_plain`` and against the per-stage K2/P1 sweep
+  on a small cavity factor built on the card (f32, 3,486 dofs), rows 1, 3
+  and 8: relative error <= 1e-5, two calls bitwise equal, one counted
+  launch per solve; ``MultifrontalLU.solve`` takes F up to
+  ``FUSED_MAX_ROWS`` rows and the per-stage sweep past that; F refuses 9
+  rows.
+- P2, P3 and P4 (the same source) at the probe's shapes and at one other:
+  bitwise equal to their plain versions, one counted launch per call.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from flowcontrol_tpu_torch.fem.assembly import CellGeometry
+from flowcontrol_tpu_torch.fem.assembly import CellGeometry, to_scipy_csr
 from flowcontrol_tpu_torch.mesh.dofmap import TaylorHoodSpace
-from flowcontrol_tpu_torch.mesh.generation import cylinder_mesh
+from flowcontrol_tpu_torch.mesh.generation import cavity_mesh, cylinder_mesh
+from flowcontrol_tpu_torch.models.cavity import CavityFlowSolver
 from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
+from flowcontrol_tpu_torch.ops import mf_fused
 from flowcontrol_tpu_torch.ops.mf_matvec import (
     gather_sum_sub,
     gather_sum_sub_plain,
@@ -45,7 +56,9 @@ from flowcontrol_tpu_torch.ops.nl import (
     nonlinear_convection_plain,
 )
 from flowcontrol_tpu_torch.ops.trisolve import block_lu_solve_fused, launches_per_solve
+from flowcontrol_tpu_torch.parallel.dofsharding import mixed_dof_coordinates
 from flowcontrol_tpu_torch.solvers.block_lu import BlockLU, block_lu_solve
+from flowcontrol_tpu_torch.solvers.multifrontal import MultifrontalLU, multifrontal_solve
 
 COARSE = dict(yinf=5.0, xinf=15.0, xinfa=-5.0, n1=4.0, n2=2.0, n3=0.8, segments=80)
 
@@ -169,3 +182,81 @@ def test_torch_cuda_k3_matches_plain(cuda, n, bs, batch):
         block_lu_solve_fused(f.tree(), b.double(), bs=bs, n=n)
     with pytest.raises(ValueError):
         block_lu_solve_fused(f.tree(), b[..., :-1], bs=bs, n=n)
+
+
+@pytest.fixture(scope="module")
+def cavity_factor(tmp_path_factory):
+    """A small cavity's BDF2 multifrontal factor on the card (f32), or None
+    without a card (the tests that use it skip first)."""
+    if not torch.cuda.is_available():
+        return None
+    fs = CavityFlowSolver.make_default(mesh=cavity_mesh(n_coarse=4, n_mid=8, n_fine=16),
+                                       device="cpu", path_out=tmp_path_factory.mktemp("cav"))
+    lhs = fs.forms.transient_lhs(2, fs._default_steady_state_initial_guess())
+    a_bc, _ = fs._bcset_perturbation().eliminate_csr(
+        to_scipy_csr(lhs, fs.space.cell_dofs, fs.space.n_dofs))
+    return MultifrontalLU(a_bc, mixed_dof_coordinates(fs.space), torch.device("cuda", 0),
+                          dtype=torch.float32, leaf_max=300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_torch_cuda_f_matches_plain(cuda, cavity_factor, rows):
+    mf = cavity_factor
+    b = torch.as_tensor(np.random.default_rng(rows).standard_normal((rows, mf.n)),
+                        dtype=torch.float32, device=cuda)
+    f = mf_fused.multifrontal_solve_fused
+    before = f.launches
+    got = f(mf, b)
+    again = f(mf, b)
+    ref = mf_fused.multifrontal_solve_fused_plain(mf, b)
+    sweep = multifrontal_solve(mf, b)
+    torch.cuda.synchronize()
+    assert f.launches == before + 2
+    assert got.shape == b.shape and got.dtype == torch.float32
+    assert torch.equal(got, again)  # fixed-order sums: bitwise repeatable
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert float((got - sweep).abs().max() / sweep.abs().max()) <= 1e-5
+    # the factor's own solve routes by width: F up to FUSED_MAX_ROWS rows
+    assert mf.takes_fused(rows)
+    assert torch.equal(mf.solve(b), got) and f.launches == before + 3
+    assert torch.equal(mf.solve(b[0]), f(mf, b[0]))
+
+
+@pytest.mark.cuda
+def test_torch_cuda_f_width_limit(cuda, cavity_factor):
+    mf = cavity_factor
+    b = torch.ones((9, mf.n), dtype=torch.float32, device=cuda)
+    before = (mf_fused.multifrontal_solve_fused.launches, stack_matvec.launches)
+    x = mf.solve(b)  # past FUSED_MAX_ROWS: the per-stage sweep
+    torch.cuda.synchronize()
+    assert mf_fused.multifrontal_solve_fused.launches == before[0]
+    assert stack_matvec.launches > before[1] and bool(torch.isfinite(x).all())
+    with pytest.raises(ValueError):
+        mf_fused.multifrontal_solve_fused(mf, b)
+    with pytest.raises(TypeError):
+        mf_fused.multifrontal_solve_fused(mf, b[:1].to(torch.float16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,s", [(1024, 128, (640, 256)), (5000, 1000, (3999, 17))])
+def test_torch_cuda_p2_p3_p4_match_plain(cuda, n, w, s):
+    rng = np.random.default_rng(n)
+    v = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=cuda)
+    v2 = torch.as_tensor(rng.standard_normal((8, n)), dtype=torch.float32, device=cuda)
+    lanes = torch.as_tensor(rng.integers(0, n, (8, w)), dtype=torch.int32, device=cuda)
+    s_ds, s_acc = (torch.tensor([o], dtype=torch.int32, device=cuda) for o in s)
+    calls = (  # (kernel, its arguments (made anew for each call), plain version)
+        (mf_fused.take_along_axis_lanes, lambda: (v2, lanes),
+         mf_fused.take_along_axis_lanes_plain),
+        (mf_fused.dynamic_slice, lambda: (v, s_ds, w), mf_fused.dynamic_slice_plain),
+        (mf_fused.dynamic_offset_accum_store, lambda: (v.clone(), s_acc, v[:w]),
+         mf_fused.dynamic_offset_accum_store_plain),  # in place on its copy of v
+    )
+    for kern, args, plain in calls:
+        before = kern.launches
+        got = kern(*args())
+        ref = plain(*args())
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        assert torch.equal(got, ref), kern.__name__

@@ -11,8 +11,9 @@ fails or no CUDA device is present:
    (``csrc/mf_sweep.cu``) and kernel K3 (``csrc/block_trisolve.cu``), one
    nvcc each, started together;
 2. K1 against its plain torch version at the 56,383-dof default cylinder
-   mesh, batch 1 and 4: max |kernel - plain| / max |plain| <= 1e-5 (f32 with
-   a different summation order), both timed with CUDA events;
+   mesh, batch 1, 4, 64 and 256 (the single stream's and the batched
+   paths' widths): max |kernel - plain| / max |plain| <= 1e-5 (f32 with a
+   different summation order), device times of both beside the bound;
 3. the main path: ``CylinderFlowSolver.make_default(Re=100)`` on ``cuda``
    (f32), Picard then Newton on the host (cd0 within 1e-6 relative of the
    JAX package's 1.1413636679 on this mesh), then 200 ``fs.step`` calls
@@ -43,7 +44,11 @@ fails or no CUDA device is present:
    plain| / max |plain| <= 1e-5. Kernel, plain and (for K2) ``torch.bmm``
    timed over the launches of one solve: device time from torch.profiler
    (the host dispatches a small launch slower than the card runs it, so a
-   CUDA-event span measures the host; it is logged too);
+   CUDA-event span measures the host; it is logged too). Then K2's wide
+   instance (the tiled product) at B = 256, the cylinder's batched width,
+   on every stage: against plain (<= 1e-5), two calls bitwise equal, one
+   counted launch per call; kernel, plain and ``torch.bmm`` per solve
+   beside the FMA bound;
 8. accuracy: from the multifrontal carry after step 10, 10 more f32 steps
    against the host float64 loop of phase 4: relative field error <= 5e-4;
 9. where the multifrontal step's time goes: a torch.profiler trace of 10
@@ -80,6 +85,8 @@ fails or no CUDA device is present:
     ``rollout_closed_loop``: aggregate steps/s, dE finite, u differs
     across members, and member 0 within 1e-4 of a single-stream
     ``Controller.step`` + ``fs.step`` loop with gain 0.5;
+    then where one multifrontal ``Stepper.step`` at B = 256 goes
+    (torch.profiler, 3 steps);
 15. where the block path's step goes, single stream (10 ``fs.step`` calls)
     and at batch 256 (3 ``Stepper.step`` calls): torch.profiler busy
     share, top kernels, launches per step;
@@ -89,7 +96,8 @@ fails or no CUDA device is present:
     two calls bitwise equal; F's device time (CUDA events around launches
     queued behind a device sleep) and the sweep's (torch.profiler) at each
     width, with the back-to-back spans a caller sees, and at rows 1 plain's
-    time beside F's bound, grid and grid syncs; P2, P3 and P4 on their own at the
+    time beside F's bound, grid and grid syncs; one traced launch at rows 1
+    and 8, its phases' device times summed by kind; P2, P3 and P4 on their own at the
     probe's shapes (v (8, 1024) and (8, 128) lanes; offsets 640 and 256),
     bitwise equal to their plain versions;
 17. the open cavity, single stream: ``CavityFlowSolver.make_default(Re=7500)``
@@ -109,13 +117,17 @@ fails or no CUDA device is present:
     steps of ``rollout_open_loop`` through the per-stage sweep (K2, P1; F
     never, exact counts); aggregate steps/s over the 19 BDF2 steps; y of
     members 0 and 63 within 1e-4 of its peak against single-stream runs
-    (which go through F);
+    (which go through F); where one such ``Stepper.step`` goes
+    (torch.profiler, 3 steps); K2's wide instance at B = 64 on the cavity's
+    stages, as in phase 7, and K1 at B = 64 on the cavity mesh;
 21. where the cavity step's time goes, and the cylinder multifrontal step's
     with F: torch.profiler over 10 ``fs.step`` calls each.
 
-The line before the last is a JSON object describing each kernel (K1, K2,
-K3 at batch 1 and at batch 256, P1, F at the cylinder's and the cavity's
-factor, P2, P3, P4): its launches on its main path, its largest error
+The line before the last is a JSON object describing each kernel (K1 at
+batch 1, 256 and 64; K2 at batch 1, 256 and 64; K3 at batch 1 and at
+batch 256; P1; F at the cylinder's and the cavity's factor; P2, P3, P4):
+its launches on its main path (K1's and K2's batched rows: their launches
+on the paths of that width), its largest error
 against its plain version (a K3 row's is the one measured at that row's
 batch width), and the device times and least time (``bound_ms``) of the
 work of one main-path call (K1, F, P2, P3, P4), of one solve's launches
@@ -242,8 +254,9 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return abs_err / max(float(ref.abs().max()), 1e-30), abs_err
 
 
-def phase_kernel(space, geom, dev) -> dict:
-    """K1 vs its plain version on the main path's tables."""
+def phase_kernel(space, geom, dev, widths=(1, 4, 64, BATCH), tag="phase 2") -> dict:
+    """K1 vs its plain version on the main path's tables at each batch
+    width: the single stream's 1, and the batched paths' 64 and 256."""
     from flowcontrol_tpu_torch.ops.nl import (
         NLTables,
         nonlinear_convection,
@@ -252,8 +265,14 @@ def phase_kernel(space, geom, dev) -> dict:
 
     tables = NLTables.build(geom, space, dev, torch.float32)
     rng = np.random.default_rng(0)
-    res = {"max_abs_err": 0.0}
-    for b in (1, 4):
+    res = {"max_abs_err": 0.0, "widths": {}}
+    # one call reads u, the cell tables and the gather table once and writes
+    # N(u); ~104 flops per cell and quadrature point (12 FMAs per node for
+    # u_q and grad u_q, the convection, 24 for the projection)
+    nc = tables.cell_vel_nodes.shape[0]
+    table_bytes = sum(t.nbytes for t in (tables.cell_vel_nodes, tables.dphi2, tables.wq,
+                                         tables.phi2, tables.gt_vel))
+    for b in widths:
         u = torch.as_tensor(
             rng.standard_normal((b, space.n_dofs)), dtype=torch.float32, device=dev
         )
@@ -265,21 +284,20 @@ def phase_kernel(space, geom, dev) -> dict:
         span = cuda_time_ms(lambda: nonlinear_convection(tables, u))
         ms = device_ms([lambda: nonlinear_convection(tables, u)])
         plain_ms = device_ms([lambda: nonlinear_convection_plain(tables, u)])
-        log(f"phase 2: K1 B={b} n={space.n_dofs}: max|k-p|/max|p| = {rel:.3e} "
+        bnd, bnd_by = bound(table_bytes + 2 * 4 * b * space.n_dofs, b * nc * 7 * 104)
+        log(f"{tag}: K1 B={b} n={space.n_dofs}: max|k-p|/max|p| = {rel:.3e} "
             f"(tol {K1_TOL:g}), max|k-p| = {abs_err:.3e}; device time: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms; CUDA-event span of the kernel {span:.4f} ms")
+            f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({bnd_by}); CUDA-event span of the "
+            f"kernel {span:.4f} ms")
         if not rel <= K1_TOL:
             raise AssertionError(f"K1 disagrees with its plain version at B={b}: {rel:.3e}")
         res["max_abs_err"] = max(res["max_abs_err"], abs_err)
-        if b == 1:  # the main path's shape
-            res["ms"], res["plain_ms"] = ms, plain_ms
-    # one call reads u, the cell tables and the gather table once and writes
-    # N(u); ~104 flops per cell and quadrature point (12 FMAs per node for
-    # u_q and grad u_q, the convection, 24 for the projection)
-    nc = tables.cell_vel_nodes.shape[0]
-    nbytes = sum(t.nbytes for t in (tables.cell_vel_nodes, tables.dphi2, tables.wq,
-                                    tables.phi2, tables.gt_vel)) + 2 * 4 * space.n_dofs
-    res["bound_ms"], res["bound_by"] = bound(nbytes, nc * 7 * 104)
+        res["widths"][b] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=bnd_by,
+                                span_ms=span)
+    if 1 in res["widths"]:  # the single stream's shape
+        w1 = res["widths"][1]
+        res.update(ms=w1["ms"], plain_ms=w1["plain_ms"], bound_ms=w1["bound_ms"],
+                   bound_by=w1["bound_by"])
     return res
 
 
@@ -498,6 +516,60 @@ def phase_mf_kernels(mf) -> dict:
     return {"K2": k2, "P1": p1}
 
 
+def phase_k2_wide(mf, batch: int, tag: str) -> dict:
+    """K2 at the batched path's width on every stage of ``mf``: against its
+    plain version (<= MF_TOL), two calls bitwise equal, one counted launch
+    per call; kernel, plain and ``torch.bmm`` (the library call, on the
+    right-hand sides laid out (m, q, B)) timed over the launches of one
+    solve, beside the bound and the CUDA-event span of the kernel's."""
+    from flowcontrol_tpu_torch.ops.mf_matvec import stack_matvec, stack_matvec_plain
+
+    dev = mf.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    r = dict(max_rel=0.0, max_abs_err=0.0, bytes=0.0, flops=0.0, launches=0)
+    calls = {k: [] for k in ("k2", "plain", "bmm")}
+    last = len(mf.stages) - 1
+    for si, st in enumerate(mf.stages):
+        ops = [(st.inv, st.e)] + ([(st.fbi, st.e)] if si < last else []) + [(st.ginv, st.b)]
+        for a, q in ops:
+            m, p, _ = a.shape
+            v = torch.randn((batch, m, q), generator=gen, device=dev, dtype=torch.float32)
+            before = stack_matvec.launches
+            got, again = stack_matvec(a, v), stack_matvec(a, v)
+            if stack_matvec.launches != before + 2 or not torch.equal(got, again):
+                raise AssertionError(f"{tag}: K2 B={batch} stage {si}: launches "
+                                     f"{stack_matvec.launches - before}, repeatable "
+                                     f"{torch.equal(got, again)}")
+            rel, abs_err = rel_err(got, stack_matvec_plain(a, v))
+            r["max_rel"] = max(r["max_rel"], rel)
+            r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+            del got, again
+            vt = v.permute(1, 2, 0).contiguous()  # (m, q, B): bmm's layout
+            calls["k2"].append(lambda a=a, v=v: stack_matvec(a, v))
+            calls["plain"].append(lambda a=a, v=v: stack_matvec_plain(a, v))
+            calls["bmm"].append(lambda a=a, vt=vt: torch.bmm(a, vt))
+            r["bytes"] += a.nbytes + 4 * batch * (m * q + m * p)
+            r["flops"] += 2 * m * p * q * batch
+            r["launches"] += 1
+    torch.cuda.synchronize()
+    r["ms"] = device_ms(calls["k2"], reps=10)
+    r["library_ms"] = device_ms(calls["bmm"], reps=10)
+    r["plain_ms"] = device_ms(calls["plain"], reps=5)
+    r["span_ms"] = cuda_time_ms(lambda: [f() for f in calls["k2"]], reps=10)
+    r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"])
+    log(f"{tag}: K2 B={batch} over {r['launches']} launches of one solve, {len(mf.stages)} "
+        f"stages: max|k-p|/max|p| = {r['max_rel']:.3e} (tol {MF_TOL:g}), max|k-p| = "
+        f"{r['max_abs_err']:.3e}, two calls bitwise equal; device time per solve: kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.bmm {r['library_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['flops'] / 1e9:.2f} GFLOP, "
+        f"{r['bytes'] / 1e9:.4f} GB; kernel at {r['flops'] / (r['ms'] * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s, {r['bound_ms'] / r['ms']:.3f} of bound); CUDA-event span of the kernel "
+        f"launches {r['span_ms']:.4f} ms")
+    if not r["max_rel"] <= MF_TOL:
+        raise AssertionError(f"{tag}: K2 B={batch} disagrees with plain: {r['max_rel']:.3e}")
+    return r
+
+
 def phase_k3(blu, library_ms: dict) -> dict:
     """K3 against its plain version on the block path's factor, batch 1, 4
     and BATCH (the widths the single-stream and the batched paths give it;
@@ -667,7 +739,9 @@ def phase_fused(mf, tag: str) -> dict:
     calls bitwise equal; F's and the sweep's times per solve at each width,
     and at 1 (the main path's) the plain version's and the bound."""
     from flowcontrol_tpu_torch.ops.mf_fused import (
+        F_BLOCK_THREADS,
         fused_grid,
+        fused_phase_times,
         grid_syncs,
         multifrontal_solve_fused,
         multifrontal_solve_fused_plain,
@@ -688,8 +762,8 @@ def phase_fused(mf, tag: str) -> dict:
         rel_sweep = rel_err(got, sweep)[0]
         same = torch.equal(got, again)
         log(f"{tag}: F rows={rows} n={mf.n}: max|F-plain|/max|plain| = {rel:.3e} (tol {F_TOL:g}), "
-            f"max|F-plain| = {abs_err:.3e}; against the per-stage K2/P1 sweep {rel_sweep:.3e}; "
-            f"two calls bitwise equal: {same}")
+            f"max|F-plain| = {abs_err:.3e}; against the per-stage K2/P1 sweep {rel_sweep:.3e} "
+            f"(bitwise equal: {torch.equal(got, sweep)}); two calls bitwise equal: {same}")
         if not (rel <= F_TOL and rel_sweep <= F_TOL and same and bool(torch.isfinite(got).all())):
             raise AssertionError(f"{tag}: F at rows={rows}: {rel:.3e} against plain, "
                                  f"{rel_sweep:.3e} against the sweep, repeatable {same}")
@@ -726,13 +800,33 @@ def phase_fused(mf, tag: str) -> dict:
     nbytes = mf.factor_bytes + tables + mf.desc.nbytes + 2 * 4 * mf.n
     flops = 2.0 * mf.factor_bytes / 4 + mf.flat_inbox.numel()
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
-    g = fused_grid()
+    g = fused_grid(1, mf.max_front, len(mf.stages))
+    g8 = fused_grid(8, mf.max_front, len(mf.stages))
     log(f"{tag}: F rows=1 device time per solve {res['ms']:.4f} ms (profiler "
         f"{widths[1]['profiler_ms']:.4f} ms), plain {res['plain_ms']:.4f} ms, per-stage sweep "
         f"{res['sweep_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
-        f"{nbytes / 1e9:.4f} GB, {nbytes / (res['ms'] * 1e-3) / 1e12:.2f} TB/s achieved); grid "
-        f"{g['blocks']} blocks of 256 threads ({g['per_sm']} per SM x {g['sms']} SMs), "
+        f"{nbytes / 1e9:.4f} GB, {nbytes / (res['ms'] * 1e-3) / 1e12:.2f} TB/s achieved, "
+        f"{res['bound_ms'] / res['ms']:.3f} of bound); rows 8 at {widths[8]['ms'] / res['ms']:.2f}x "
+        f"rows 1; grid {g['blocks']} blocks of {F_BLOCK_THREADS} threads ({g['per_sm']} per SM x "
+        f"{g['sms']} "
+        f"SMs; rows 8: {g8['per_sm']} per SM) with node vectors of {mf.max_front} floats, "
         f"{grid_syncs(mf)} grid syncs per solve, {len(mf.stages)} stages")
+    res["grid_syncs"] = grid_syncs(mf)
+    # where F's time goes: one traced launch per width, phase by phase (the
+    # card's global timer after every grid sync), summed by kind of phase
+    for rows in (1, 8):
+        b = torch.as_tensor(rng.standard_normal((rows, mf.n)), dtype=torch.float32, device=dev)
+        fused_phase_times(mf, b)  # warm
+        phases = fused_phase_times(mf, b)
+        kinds = {}
+        for ph in phases:
+            key = f"{ph['phase']} ({'leaf stages' if len(ph['stages']) > 1 else 'per stage'})"
+            us, nb, k = kinds.get(key, (0.0, 0, 0))
+            kinds[key] = (us + ph["us"], nb + ph["bytes"], k + 1)
+        total = sum(ph["us"] for ph in phases)
+        log(f"{tag}: F rows={rows} traced: {total:.1f} us over {len(phases)} phases; "
+            + "; ".join(f"{key} x{k}: {us:.1f} us, {nb / 1e6:.1f} MB"
+                        for key, (us, nb, k) in kinds.items()))
     return res
 
 
@@ -823,6 +917,7 @@ def main() -> int:
     from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
     from flowcontrol_tpu_torch.ops.cuda_build import build_all
     from flowcontrol_tpu_torch.ops.mf_fused import (
+        F_BLOCK_THREADS,
         MF_FUSED_KERNEL,
         fused_grid,
         multifrontal_solve_fused,
@@ -858,8 +953,9 @@ def main() -> int:
                 log(f"phase 1: ptxas: {line.strip()}")
     for rows in (1, 2, 4, 8):
         g = fused_grid(rows)
-        log(f"phase 1: F's cooperative grid for {rows} right-hand side(s): {g['blocks']} blocks "
-            f"of 256 threads ({g['per_sm']} per SM x {g['sms']} SMs)")
+        log(f"phase 1: F's cooperative grid for {rows} right-hand side(s), node vectors of "
+            f"1536 floats and 24 stages: {g['blocks']} blocks of {F_BLOCK_THREADS} threads "
+            f"({g['per_sm']} per SM x {g['sms']} SMs)")
 
     # ── phase 3 set-up (mesh) first: phase 2 runs on the same mesh ───────────
     t0 = time.perf_counter()
@@ -953,8 +1049,9 @@ def main() -> int:
     if mfp["launches"] != expected:
         raise AssertionError(f"multifrontal path launches {mfp['launches']}, expected {expected}")
 
-    # ── phase 7: K2 and P1 against plain ─────────────────────────────────────
+    # ── phase 7: K2 and P1 against plain; K2 at the batched path's width ──────
     mfk = phase_mf_kernels(mf)
+    k2_wide = {BATCH: phase_k2_wide(mf, BATCH, "phase 7")}
 
     # ── phase 8: accuracy against host f64 ───────────────────────────────────
     accuracy(host, st2, mfp["carry10"], "phase 8")
@@ -1041,6 +1138,16 @@ def main() -> int:
         if r["launches"] != expected_closed[name]:
             raise AssertionError(f"batched closed loop ({name}) launches {r['launches']}")
     k3_batched_launches = open_blk["launches"][3] + closed_blk["launches"][3]
+    k1_batched_launches = sum(r["launches"][0] for r in (open_blk, open_mf, closed_blk, closed_mf))
+
+    # where the multifrontal step's time goes at B = BATCH (the per-stage sweep)
+    carry_mf = open_mf["carry"]
+    u_mf = torch.zeros((BATCH, st2.n_act), dtype=st2.dtype, device=dev)
+    st2.step(carry_mf, u_mf)
+    torch.cuda.synchronize()
+    profile_steps(fs2, f"phase 14 (multifrontal, B={BATCH})", steps=3,
+                  step=lambda: st2.step(carry_mf, u_mf), what="Stepper.step")
+    del carry_mf
 
     # ── phase 15: where the block path's step goes, B = 1 and B = BATCH ──────
     profile_steps(fs3, "phase 15 (B=1)")
@@ -1117,6 +1224,15 @@ def main() -> int:
         f"{solves_bc} solves x {k2c} K2 and {p1c} P1)")
     if open_c["launches"] != expected or mfc.takes_fused(CAV_BATCH):
         raise AssertionError(f"cavity batched launches {open_c['launches']}, expected {expected}")
+    carry_c = open_c["carry"]
+    u_c = torch.zeros((CAV_BATCH, stc.n_act), dtype=stc.dtype, device=dev)
+    stc.step(carry_c, u_c)
+    torch.cuda.synchronize()
+    profile_steps(fc, f"phase 20 (B={CAV_BATCH})", steps=3, step=lambda: stc.step(carry_c, u_c),
+                  what="Stepper.step")
+    del carry_c
+    k2_wide[CAV_BATCH] = phase_k2_wide(mfc, CAV_BATCH, "phase 20")
+    k1_cav = phase_kernel(fc.space, fc.geom, dev, widths=(CAV_BATCH,), tag="phase 20")
 
     # ── phase 21: where the cavity step goes; the cylinder's with F and without
     profile_steps(fc, "phase 21 (cavity, F)")
@@ -1136,16 +1252,29 @@ def main() -> int:
 
     src = "flowcontrol_tpu_torch/csrc/"
     f_launches = mfp["launches"][4] + cav["launches"][4]
-    k2_launches = open_mf["launches"][1] + closed_mf["launches"][1] + open_c["launches"][1]
+    k2_cyl_launches = open_mf["launches"][1] + closed_mf["launches"][1]
+    k2_launches = k2_cyl_launches + open_c["launches"][1]
     p1_launches = open_mf["launches"][2] + closed_mf["launches"][2] + open_c["launches"][2]
     probe_src = "tools/pallas_gather_probe.py"
     log(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f} s wall")
     print(json.dumps({"kernels": [
         row("K1 nl_convection", src + "nl_convection.cu",
             "flowcontrol_tpu/ops/pallas_nl.py:136", k1_launches, k1, None),
+        row(f"K1 nl_convection B={BATCH} cylinder", src + "nl_convection.cu",
+            "flowcontrol_tpu/ops/pallas_nl.py:136", k1_batched_launches,
+            dict(max_abs_err=k1["max_abs_err"], **k1["widths"][BATCH]), None),
+        row(f"K1 nl_convection B={CAV_BATCH} cavity", src + "nl_convection.cu",
+            "flowcontrol_tpu/ops/pallas_nl.py:136", open_c["launches"][0],
+            dict(max_abs_err=k1_cav["max_abs_err"], **k1_cav["widths"][CAV_BATCH]), None),
         row("K2 stack_matvec", src + "mf_sweep.cu",
             "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", k2_launches, mfk["K2"],
             mfk["K2"]["library_ms"]),
+        row(f"K2 stack_matvec B={BATCH} cylinder", src + "mf_sweep.cu",
+            "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", k2_cyl_launches, k2_wide[BATCH],
+            k2_wide[BATCH]["library_ms"]),
+        row(f"K2 stack_matvec B={CAV_BATCH} cavity", src + "mf_sweep.cu",
+            "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", open_c["launches"][1],
+            k2_wide[CAV_BATCH], k2_wide[CAV_BATCH]["library_ms"]),
         row("K3 block_lu_solve_fused B=1", src + "block_trisolve.cu",
             "flowcontrol_tpu/ops/pallas_trisolve.py:127", blk["launches"][3], k3[1],
             k3[1]["library_ms"]),

@@ -3,23 +3,54 @@
 // K2, stack_matvec: out[b, m, p] = sum_q a[m, p, q] * v[b, m, q] over one
 //   stage's padded factor stack a (m, p, q) f32 (inv, fbi or ginv) and a
 //   leading batch of B right-hand sides. Replaces the TPU kernel
-//   flowcontrol_tpu/ops/pallas_mf_matvec.py (_mv_kernel, launched by
-//   _stack_matvec), which took only 128-aligned p and q; this one takes
+//   flowcontrol_tpu/ops/pallas_mf_matvec.py:79 (_mv_kernel, launched by
+//   _stack_matvec :71), which took only 128-aligned p and q; this one takes
 //   every stage (p, q multiples of 8 at the 56,383-dof cylinder, down to 8).
+//   Two designs, by the width of the batch:
 //
-//   What bounds it: one multiply-add per element of a, read once. At the
-//   56,383-dof cylinder one solve reads 0.46 GB of stacks over ~57 launches,
-//   0.137 ms at the H100's 3.35 TB/s, so bytes bound it, and at single
-//   stream the latency of memory and of the launch: one launch moves ~8 MB,
-//   2.4 µs at bandwidth. Design: one block per (tile of 8 output rows, node
-//   m); v[b, m, :] for up to 8 right-hand sides sits in shared memory
-//   (q <= ~1.5k floats: under 48 KB); each warp computes one whole row with
+//   Narrow, B <= 8 (the per-stage sweep with F turned off; the single
+//   stream's launches before F took them). What bounds it: one
+//   multiply-add per element of a, read once: 0.46 GB per solve at the
+//   cylinder, 0.137 ms at the H100's 3.35 TB/s, and at single stream the
+//   latency of memory and of the launch (one launch moves ~8 MB, 2.4 us at
+//   bandwidth). Design: one block per (tile of 8 output rows, node m);
+//   v[b, m, :] for up to 8 right-hand sides sits in shared memory (q <=
+//   ~1.5k floats: under 48 KB); each warp computes one whole row with
 //   coalesced 16-byte loads of a, all eight of a 1024-float chunk in flight
 //   per lane before their FMAs (4-byte loads when q % 4 != 0), and a
-//   fixed-order warp-shuffle reduction. No atomics, so the result is deterministic. a is read once
-//   per group of 8 right-hand sides (once for the single stream, whose
-//   instance keeps one accumulator per thread). Full f32 FMAs: no TF32, no
-//   tensor cores.
+//   fixed-order warp-shuffle reduction.
+//
+//   Wide, B > 8 (the batched paths: B = 64 at the cavity, 256 at the
+//   cylinder). Per node m this is a product out[:, m, :]^T (p x B) =
+//   a[m] (p x q) . v[:, m, :]^T (q x B). What bounds it: the FMAs, 2 p q B
+//   flops per node: 58.8 GFLOP per solve at the cylinder's B = 256 (0.878
+//   ms at the 67 TFLOP/s f32 rate), 28.1 GFLOP at the cavity's B = 64
+//   (0.419 ms); the stacks, 0.46 and 0.88 GB, take 0.14 and 0.26 ms to
+//   read. The narrow design re-read every row of a once per 8 right-hand
+//   sides and issued one shared-memory load per four FMAs: 25.17 ms and
+//   10.36 ms per solve, 2.3-2.7 TFLOP/s, against torch.bmm's 2.22 and 2.07
+//   ms (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py phases 7 and 20).
+//   Design: a tiled product. A block is SK groups of 128 threads and owns
+//   one tile of 64 right-hand sides x 16 TM rows of one node; the
+//   right-hand-side tiles of one (node, row tile) are launched next to each
+//   other, so the second read of an a tile hits L2. Each group stages its
+//   chunks of 16 values of q of the a tile and of the v tile in shared
+//   memory through a ring of three buffers filled by cp.async (16-byte .cg
+//   copies), so two chunks are in flight while one is multiplied; each
+//   thread keeps TM x 8 accumulators, and per four values of q makes 8 + TM
+//   16-byte shared loads for 32 TM FMAs (TM = 8: balanced with the shared
+//   memory's rate). The launch takes the largest row tile (128, 64, 32)
+//   that keeps three quarters of the SMs busy, and splits q over SK = 1, 2
+//   or 4 groups of the block, the most whose blocks still fit the card in
+//   one wave (an SM holds four groups): a stage of a few nodes has few
+//   tiles at B = 64. Group g takes the chunks g, g + SK, ...; at the end
+//   group 0 adds the other groups' sums in the order g = 1, 2, .. . No
+//   atomics and no split across blocks, so two calls give the same bits.
+//   Rows, right-hand sides and q past their ends are zero-filled by the
+//   copy (never read past p, q or the batch); v and a whose rows are not
+//   16-byte aligned (never on the sweep's paths) take one tile shape with
+//   4-byte copies. Full f32 FMAs: no TF32, no tensor cores (the repo's f32
+//   pin).
 //
 // P1, gather_sum_sub: out[b, j] = xe[b, j] - sum_k buf[b, t[k, j]] over one
 //   inbox segment of the forward sweep, t (kmax, w) int32 with pads
@@ -41,6 +72,14 @@ constexpr int kRows = kWarps;  // output rows per block: one per warp
 constexpr int kLoads = 8;      // 16-byte loads of a in flight per lane
 constexpr int kChunk = 8;      // most right-hand sides per pass over a
 constexpr int kGatherThreads = 256;
+
+// the wide instance's tiles
+constexpr int kWideThreads = 128;  // threads of one group (a block holds SK groups)
+constexpr int kTileB = 64;       // right-hand sides per block
+constexpr int kTileQ = 16;       // depth of one staged chunk of q
+constexpr int kRing = 3;         // chunks staged at once (two in flight)
+constexpr int kLd = kTileQ + 4;  // padded tile row: conflict-free 16-byte reads
+constexpr int kWideMin = kChunk + 1;  // batches the wide instance takes
 
 template <int NB>
 __device__ __forceinline__ void fma4(float (&acc)[NB], const float4 w, const float* sv, int q,
@@ -150,6 +189,230 @@ int launch_stack_matvec(const float* a, int m, int p, int q, const float* v,
   return (int)cudaGetLastError();
 }
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// one 16-float column chunk [k0, k0 + 16) of TR rows of a row-major matrix
+// (row i at src + i * ld, `rows` real rows, `cols` real columns) into a
+// staged tile dst[TR][kLd]; the group's 128 threads (index t0) copy it in
+// 16-byte pieces (VEC) or 4-byte ones. What lies past the real rows or
+// columns is zero-filled (the copy reads no byte there; its address is
+// src's).
+template <bool VEC, int TR>
+__device__ __forceinline__ void stage_chunk(float* dst, const float* src, int64_t ld,
+                                            int rows, int cols, int k0, int t0) {
+#pragma unroll
+  for (int t = t0; t < TR * 4; t += kWideThreads) {
+    const int i = t >> 2;
+    const int c = k0 + 4 * (t & 3);
+    float* d = dst + i * kLd + 4 * (t & 3);
+    const float* s = src + (int64_t)i * ld + c;
+    if (VEC) {
+      const bool full = i < rows && c < cols;  // cols % 4 == 0: all four or none
+      cp_async16(d, full ? s : src, full);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const bool full = i < rows && c + u < cols;
+        cp_async4(d + u, full ? s + u : src, full);
+      }
+    }
+  }
+}
+
+// floats of one group's ring of staged chunks (a tile of 16 TM rows and one
+// of 64 right-hand sides per chunk)
+__host__ __device__ constexpr int ring_floats(int tm) { return kRing * (16 * tm + kTileB) * kLd; }
+
+// The wide instance: one block of SK groups of 128 threads per (tile of
+// kTileB = 64 right-hand sides, tile of 16 TM rows, node); grid
+// (ceil(B / 64), ceil(p / (16 TM)), m). Group g multiplies the chunks of q
+// with index = g (mod SK), each thread keeping TM x 8 accumulators (rows
+// tr + 16 i, i < TM; right-hand sides tc + 8 j, j < 8); at the end group 0
+// adds the other groups' sums to its own in the order g = 1, 2, .. and
+// stores. A warp covers 4 row groups x 8 right-hand-side groups: each
+// quarter-warp's 16-byte shared loads are one broadcast word (a) or 8
+// consecutive padded rows in distinct banks (v). Per 4 values of q a thread
+// makes 8 + TM 16-byte shared loads for 32 TM FMAs. Dynamic shared memory:
+// SK rings of ring_floats(TM) floats. VEC: a's and v's rows are 16-byte
+// aligned (q % 4 == 0), so the copies move 16-byte pieces.
+template <bool VEC, int TM, int SK>
+__global__ void __launch_bounds__(kWideThreads * SK, 4 / SK)
+    stack_matmul_kernel(const float* __restrict__ a, int p, int q,
+                        const float* __restrict__ v, int64_t v_bstride,
+                        float* __restrict__ out, int64_t o_bstride, int batch) {
+  constexpr int kRowsT = 16 * TM;
+  constexpr int kStage = (kRowsT + kTileB) * kLd;  // floats of one staged chunk
+  extern __shared__ float4 smem4[];
+  const int g = threadIdx.x / kWideThreads, t0 = threadIdx.x % kWideThreads;
+  float* ring = reinterpret_cast<float*>(smem4) + g * ring_floats(TM);
+  const int b0 = blockIdx.x * kTileB;
+  const int row0 = blockIdx.y * kRowsT;
+  const int mi = blockIdx.z;
+  const float* at = a + ((int64_t)mi * p + row0) * q;
+  const float* vt = v + (int64_t)b0 * v_bstride + (int64_t)mi * q;
+  const int rows = min(kRowsT, p - row0);
+  const int nb = min(kTileB, batch - b0);
+
+  const int warp = t0 >> 5, lane = t0 & 31;
+  const int tr = warp * 4 + (lane >> 3);
+  const int tc = lane & 7;
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // the group's chunks are g, g + SK, ...: nk_g of them
+  const int nk = (q + kTileQ - 1) / kTileQ;
+  const int rounds = (nk + SK - 1) / SK;
+  auto stage = [&](int slot, int kt) {
+    const int chunk = kt * SK + g;
+    if (chunk < nk) {
+      float* st = ring + slot * kStage;
+      stage_chunk<VEC, kRowsT>(st, at, q, rows, q, chunk * kTileQ, t0);
+      stage_chunk<VEC, kTileB>(st + kRowsT * kLd, vt, v_bstride, nb, q, chunk * kTileQ, t0);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int sl = 0; sl < kRing - 1; ++sl) {
+    if (sl < rounds) {
+      stage(sl, sl);
+    } else {
+      cp_async_commit();
+    }
+  }
+  for (int kt = 0; kt < rounds; ++kt) {
+    cp_async_wait<kRing - 2>();  // round kt has landed (this thread's copies)
+    __syncthreads();             // ... and everyone's; round kt - 1 is consumed
+    if (kt + kRing - 1 < rounds) {
+      stage((kt + kRing - 1) % kRing, kt + kRing - 1);
+    } else {
+      cp_async_commit();
+    }
+    if (kt * SK + g >= nk) continue;  // this group has no chunk this round
+    const float* ca = ring + (kt % kRing) * kStage;
+    const float* cv = ca + kRowsT * kLd;
+#pragma unroll
+    for (int kk = 0; kk < kTileQ; kk += 4) {
+      float4 y[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        y[j] = *reinterpret_cast<const float4*>(cv + (tc + 8 * j) * kLd + kk);
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(ca + (tr + 16 * i) * kLd + kk);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {  // q ascending: kk, kk + 1, kk + 2, kk + 3
+          acc[i][j] = fmaf(x.x, y[j].x, acc[i][j]);
+          acc[i][j] = fmaf(x.y, y[j].y, acc[i][j]);
+          acc[i][j] = fmaf(x.z, y[j].z, acc[i][j]);
+          acc[i][j] = fmaf(x.w, y[j].w, acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block (the last groups are empty)
+
+  if (SK > 1) {  // the groups' sums meet in shared memory, in a fixed order
+    __syncthreads();  // every group is done with its ring
+    float* part = reinterpret_cast<float*>(smem4);  // [SK - 1][TM * 8][128]
+    if (g > 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) part[((g - 1) * TM * 8 + i * 8 + j) * kWideThreads + t0] = acc[i][j];
+    }
+    __syncthreads();
+    if (g > 0) return;
+#pragma unroll
+    for (int h = 1; h < SK; ++h)
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] += part[((h - 1) * TM * 8 + i * 8 + j) * kWideThreads + t0];
+  }
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int bb = tc + 8 * j;
+    if (bb >= nb) continue;
+    float* o = out + (int64_t)(b0 + bb) * o_bstride + (int64_t)mi * p + row0;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = tr + 16 * i;
+      if (r < rows) o[r] = acc[i][j];
+    }
+  }
+}
+
+int g_sms = 0;  // SMs of the current device, read on the first wide launch
+
+template <bool VEC, int TM, int SK>
+int launch_tile(dim3 grid, const float* a, int p, int q, const float* v, int64_t v_bstride,
+                float* out, int64_t o_bstride, int batch, cudaStream_t stream) {
+  const int smem = SK * ring_floats(TM) * (int)sizeof(float);
+  static bool opted = false;  // dynamic shared memory past 48 KB, once per instance
+  if (!opted && smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(stack_matmul_kernel<VEC, TM, SK>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  opted = true;
+  stack_matmul_kernel<VEC, TM, SK><<<grid, kWideThreads * SK, smem, stream>>>(
+      a, p, q, v, v_bstride, out, o_bstride, batch);
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC, int TM>
+int launch_split(int64_t tiles, dim3 grid, const float* a, int p, int q, const float* v,
+                 int64_t v_bstride, float* out, int64_t o_bstride, int batch,
+                 cudaStream_t stream) {
+  // an SM holds 4 groups of 128 threads (registers and shared memory): the
+  // largest split of q whose blocks all fit in one wave
+  if (tiles <= g_sms) return launch_tile<VEC, TM, 4>(grid, a, p, q, v, v_bstride, out, o_bstride, batch, stream);
+  if (tiles <= 2 * g_sms) return launch_tile<VEC, TM, 2>(grid, a, p, q, v, v_bstride, out, o_bstride, batch, stream);
+  return launch_tile<VEC, TM, 1>(grid, a, p, q, v, v_bstride, out, o_bstride, batch, stream);
+}
+
+int launch_stack_matmul(const float* a, int m, int p, int q, const float* v, int64_t v_bstride,
+                        float* out, int64_t o_bstride, int batch, cudaStream_t stream) {
+  if (g_sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // rows per tile: the most (128, then 64, then 32) that still keep three
+  // quarters of the SMs busy (a stage of a few nodes at B = 64 has few
+  // 128-row tiles); each shared load then feeds the most FMAs
+  const unsigned bx = (unsigned)((batch + kTileB - 1) / kTileB);
+  auto tiles = [&](int tm) { return (int64_t)bx * ((p + 16 * tm - 1) / (16 * tm)) * m; };
+  auto grid = [&](int tm) { return dim3(bx, (unsigned)((p + 16 * tm - 1) / (16 * tm)), (unsigned)m); };
+  const int64_t busy = (3 * (int64_t)g_sms) / 4;
+  if (tiles(8) >= busy) return launch_split<true, 8>(tiles(8), grid(8), a, p, q, v, v_bstride, out, o_bstride, batch, stream);
+  if (tiles(4) >= busy) return launch_split<true, 4>(tiles(4), grid(4), a, p, q, v, v_bstride, out, o_bstride, batch, stream);
+  return launch_split<true, 2>(tiles(2), grid(2), a, p, q, v, v_bstride, out, o_bstride, batch, stream);
+}
+
 __global__ void gather_sum_sub_kernel(const float* __restrict__ buf, int64_t buf_bstride,
                                       const int* __restrict__ t, int kmax, int w,
                                       const float* xe, int64_t xe_bstride,
@@ -180,7 +443,17 @@ extern "C" int mf_stack_matvec_f32(const float* a, int m, int p, int q, const fl
   if (batch == 1) return launch_stack_matvec<1>(a, m, p, q, v, v_bstride, out, o_bstride, batch, s);
   if (batch == 2) return launch_stack_matvec<2>(a, m, p, q, v, v_bstride, out, o_bstride, batch, s);
   if (batch <= 4) return launch_stack_matvec<4>(a, m, p, q, v, v_bstride, out, o_bstride, batch, s);
-  return launch_stack_matvec<kChunk>(a, m, p, q, v, v_bstride, out, o_bstride, batch, s);
+  if (batch < kWideMin) {
+    return launch_stack_matvec<kChunk>(a, m, p, q, v, v_bstride, out, o_bstride, batch, s);
+  }
+  if (q <= 0) return (int)cudaErrorInvalidValue;  // the wrapper zero-fills out itself
+  const bool vec = (q % 4) == 0 && (reinterpret_cast<uintptr_t>(a) % 16) == 0 &&
+                   (v_bstride % 4) == 0 && (reinterpret_cast<uintptr_t>(v) % 16) == 0;
+  if (vec) return launch_stack_matmul(a, m, p, q, v, v_bstride, out, o_bstride, batch, s);
+  // rows not 16-byte aligned (never on the sweep's paths): one tile shape
+  // with 4-byte copies
+  const dim3 grid((unsigned)((batch + kTileB - 1) / kTileB), (unsigned)((p + 63) / 64), (unsigned)m);
+  return launch_tile<false, 4, 1>(grid, a, p, q, v, v_bstride, out, o_bstride, batch, s);
 }
 
 // buf[b, c] at buf + b*buf_bstride + c (buf[b, 0] == 0); t (kmax, w) int32

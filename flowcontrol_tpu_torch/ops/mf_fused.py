@@ -5,10 +5,12 @@ primitives P2, P3 and P4 on their own.
   ``MultifrontalLU`` factor for ``b`` of shape (..., n) with at most
   :data:`F_MAX_ROWS` rows. One cooperative launch walks the factor's stage
   descriptor array (:data:`STAGE_WORDS` int64 words per stage, built by
-  ``solvers/multifrontal.py``): the entry permutation, the forward sweep
-  (inbox gather-sum, ``inv·xe``, ``fbi·z``), the backward sweep (``bd``
-  gather, ``x -= ginv·xb``) and the exit permutation, with grid-wide
-  barriers between dependent phases. It is the whole-sweep kernel the JAX
+  ``solvers/multifrontal.py``): the forward sweep (``xe`` gathered through
+  the entry permutation less the inbox sums, ``z = inv·xe`` into a
+  full-length vector, ``fbi·z`` into the contribution buffer) and the
+  backward sweep (``z[stage] -= ginv·z[bd]``, each final value scattered
+  to the output through the permutation), with grid-wide barriers between
+  dependent phases (:func:`grid_syncs`). It is the whole-sweep kernel the JAX
   package could not build on the TPU (``docs/tpu-design.md``, the probes
   of ``tools/pallas_gather_probe.py``), and it replaces the JAX package's
   per-stage sweep (``flowcontrol_tpu/solvers/multifrontal.py``:
@@ -38,14 +40,22 @@ from flowcontrol_tpu_torch.ops.cuda_build import CudaLibrary
 #: the stage record of the descriptor array: these head words, then
 #: MAX_SEGS inbox segments of SEG_FIELDS words (unused segments are zero).
 #: Offsets are elements of the flat stacks (inv, ginv, fbi), of the flat bd
-#: table and of the flat inbox tables. Kept in step with csrc/mf_fused.cu.
-HEAD_FIELDS = ("e", "b", "m", "off", "c_off", "inv", "ginv", "fbi", "bd", "n_segs")
+#: table and of the flat inbox tables; ``n_bd`` counts the stage's real
+#: (non-pad) bd slots: a stage without one (the root) has no backward
+#: phase; ``leaf`` is 1 when no stage's bd holds one of the stage's slots:
+#: it then receives no inbox sums and nothing reads its results in the
+#: backward sweep, so F runs all leaf stages together. Kept in step with
+#: csrc/mf_fused.cu.
+HEAD_FIELDS = ("e", "b", "m", "off", "c_off", "inv", "ginv", "fbi", "bd", "n_bd", "leaf",
+               "n_segs")
 SEG_FIELDS = ("m0", "m1", "tabbed", "inbox", "kmax")
 MAX_SEGS = 4
 STAGE_WORDS = len(HEAD_FIELDS) + MAX_SEGS * len(SEG_FIELDS)
 
 #: most right-hand sides F takes in one launch (its per-warp accumulators)
 F_MAX_ROWS = 8
+#: threads of one F block (kept in step with csrc/mf_fused.cu)
+F_BLOCK_THREADS = 512
 
 
 def stage_record(words) -> tuple[dict, list]:
@@ -62,10 +72,10 @@ def stage_record(words) -> tuple[dict, list]:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.mf_fused_solve_f32.argtypes = [
-        p, i32, i32, p, p, p, p, p, p, p, p, p, p, i32, i64, i64, i64, i64, i64, p,
+        p, i32, i32, p, p, p, p, p, p, p, p, p, i32, i32, i64, i64, i64, i64, p, p,
     ]
     lib.mf_fused_solve_f32.restype = i32
-    lib.mf_fused_grid.argtypes = [i32] + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.mf_fused_grid.argtypes = [i32, i32, i32] + [ctypes.POINTER(ctypes.c_int)] * 3
     lib.mf_fused_grid.restype = i32
     lib.mf_take_along_lanes_f32.argtypes = [p, i64, p, i32, i32, p, p]
     lib.mf_take_along_lanes_f32.restype = i32
@@ -92,26 +102,58 @@ def _stream(dev: torch.device):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def fused_grid(rows: int = 1) -> dict:
+def fused_grid(rows: int = 1, width: int = 1536, n_stages: int = 24) -> dict:
     """F's cooperative grid on the current device for ``rows`` right-hand
-    sides (each accumulator count is its own kernel instance): blocks per
-    SM (from the occupancy calculator), SMs and blocks."""
+    sides, node vectors of ``width`` floats (a factor's ``max_front``, a
+    multiple of 8) and ``n_stages`` stages (each accumulator count is its
+    own kernel instance; its shared memory holds the stage descriptors and
+    rows x width floats): blocks per SM (from the occupancy calculator),
+    SMs and blocks."""
     vals = [ctypes.c_int(0) for _ in range(3)]
     lib = MF_FUSED_KERNEL.get()
-    _raise_on(lib.mf_fused_grid(rows, *[ctypes.byref(v) for v in vals]), "F occupancy query")
+    _raise_on(lib.mf_fused_grid(rows, width, n_stages, *[ctypes.byref(v) for v in vals]),
+              "F occupancy query")
     return dict(zip(("blocks", "per_sm", "sms"), (v.value for v in vals)))
 
 
+def phase_labels(mf) -> list[tuple[str, tuple]]:
+    """F's phases in launch order, each ending at a grid sync (the last at
+    the end of the launch), as (name, stages): ("inv", leaves) and ("fbi",
+    leaves) for all leaf stages at once (the root's updates excluded); then
+    per other stage, deepest first, ("inbox", (si,)) when it has a tabbed
+    inbox segment (its xe less the inbox sums, one pass over the grid;
+    preceded by ("entry", ()) when no phase came before it), ("inv",
+    (si,)) and ("fbi", (si,)) (none at the root); then ("ginv", (si,)) for
+    those with real bd slots, root first, and ("ginv", leaves)."""
+    records = [stage_record(w) for w in mf.desc.cpu().tolist()]
+    last = len(records) - 1
+    leaves = tuple(si for si, (h, _) in enumerate(records) if h["leaf"])
+    labels = []
+    if leaves:
+        labels.append(("inv", leaves))
+        if any(si < last for si in leaves):
+            labels.append(("fbi", tuple(si for si in leaves if si < last)))
+    for si, (h, segs) in enumerate(records):
+        if h["leaf"]:
+            continue
+        if any(sg["tabbed"] for sg in segs):
+            if not labels:
+                labels.append(("entry", ()))
+            labels.append(("inbox", (si,)))
+        labels.append(("inv", (si,)))
+        if si < last:
+            labels.append(("fbi", (si,)))
+    labels += [("ginv", (si,)) for si in reversed(range(len(records)))
+               if not records[si][0]["leaf"] and records[si][0]["n_bd"]]
+    if leaves:
+        labels.append(("ginv", leaves))
+    return labels
+
+
 def grid_syncs(mf) -> int:
-    """Grid-wide barriers in one F launch: one after the entry permutation;
-    forward, per stage, one after its inbox sums (if it has a tabbed
-    segment), one after ``inv·xe`` and one after its updates; backward one
-    per stage."""
-    syncs = 1
-    for words in mf.desc.cpu().tolist():
-        _, segs = stage_record(words)
-        syncs += 3 + any(sg["tabbed"] for sg in segs)
-    return syncs
+    """Grid-wide barriers in one F launch: one at the end of every phase of
+    :func:`phase_labels` but the last."""
+    return len(phase_labels(mf)) - 1
 
 
 # ── F: the whole solve ───────────────────────────────────────────────────────
@@ -143,36 +185,42 @@ def multifrontal_solve_fused_plain(mf, b: torch.Tensor) -> torch.Tensor:
             size *= d
         return flat[o: o + size].view(*shape)
 
-    # entry permutation (P2); the pad slots and the trailing slot read zero
-    x = take_along_axis_lanes_plain(
+    # b in slot order through the entry permutation (P2; pad slots read
+    # zero); z holds the stage results, then the solution in slot order,
+    # with a trailing zero slot for the bd pads
+    xs = take_along_axis_lanes_plain(
         torch.nn.functional.pad(bb, (0, 1)), mf.perm.expand(rows, total + 1))
+    z = torch.zeros((rows, total + 1), dtype=dtype, device=bb.device)
     buf = torch.empty((rows, 1 + mf.total_contrib), dtype=dtype, device=bb.device)
     buf[:, 0] = 0.0
     for si, (h, segs) in enumerate(records):
         e, bw, m, off = h["e"], h["b"], h["m"], h["off"]
+        xe = xs[:, off: off + m * e].clone()
         for sg in segs:
-            if sg["tabbed"]:  # P1, then P4 with the negated sum
+            if sg["tabbed"]:  # P1, subtracted as the kernel stages xe
                 w = (sg["m1"] - sg["m0"]) * e
                 t = view(inbox_flat, sg["inbox"], sg["kmax"], w)
-                s = off + sg["m0"] * e
-                x[:, s: s + w] += -buf[:, t].sum(dim=-2)
-        xe = x[:, off: off + m * e].view(rows, m, e)
-        z = torch.einsum("mpq,rmq->rmp", view(stacks, h["inv"], m, e, e), xe)
+                s = sg["m0"] * e
+                xe[:, s: s + w] += -buf[:, t].sum(dim=-2)
+        zs = torch.einsum("mpq,rmq->rmp", view(stacks, h["inv"], m, e, e), xe.view(rows, m, e))
+        z[:, off: off + m * e] = zs.reshape(rows, m * e)
         if si < len(records) - 1:  # the root's updates have no consumer
             c0 = 1 + h["c_off"]
             buf[:, c0: c0 + m * bw] = torch.einsum(
-                "mpq,rmq->rmp", view(stacks, h["fbi"], m, bw, e), z).reshape(rows, m * bw)
-        xe.copy_(z)
+                "mpq,rmq->rmp", view(stacks, h["fbi"], m, bw, e), zs).reshape(rows, m * bw)
     for h, _ in reversed(records):
+        if h["n_bd"] == 0:  # no real bd slot: z is final
+            continue
         e, bw, m, off = h["e"], h["b"], h["m"], h["off"]
-        xb = x[:, view(bd_flat, h["bd"], m * bw)].view(rows, m, bw)
-        corr = torch.einsum("mpq,rmq->rmp", view(stacks, h["ginv"], m, e, bw), xb)
-        x[:, off: off + m * e] += -corr.reshape(rows, m * e)
-    out = take_along_axis_lanes_plain(x, mf.ipos.expand(rows, n))  # exit permutation (P2)
+        zb = z[:, view(bd_flat, h["bd"], m * bw)].view(rows, m, bw)
+        corr = torch.einsum("mpq,rmq->rmp", view(stacks, h["ginv"], m, e, bw), zb)
+        z[:, off: off + m * e] += -corr.reshape(rows, m * e)
+    # the kernel scatters each final value through perm; the same as this gather
+    out = take_along_axis_lanes_plain(z, mf.ipos.expand(rows, n))
     return out.reshape(batch + (n,)).to(out_dtype)
 
 
-def _solve_cuda(mf, b: torch.Tensor) -> torch.Tensor:
+def _solve_cuda(mf, b: torch.Tensor, trace: torch.Tensor | None = None) -> torch.Tensor:
     batch, rows, out_dtype = _rows_of(mf, b)
     dev = mf.flat_stacks.device
     if mf.dtype != torch.float32 or b.dtype not in (torch.float32, torch.float64):
@@ -183,23 +231,22 @@ def _solve_cuda(mf, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"kernel F takes 1 to {F_MAX_ROWS} right-hand sides, got {rows}")
     n, total = mf.n, mf.total_slots
     bb = b.reshape(rows, n).to(torch.float32).contiguous()
-    # scratch, allocated here and never by the kernel: the work vector x
-    # (rows padded to 4 floats, so 16-byte loads stay aligned), the stage
-    # result z, the contribution buffer [zero | contributions] (the kernel
-    # writes the leading zero in its first phase)
-    xs = -(-(total + 1) // 4) * 4
-    zs = -(-mf.max_stage_slots // 4) * 4
+    # scratch, allocated here and never by the kernel: x, the stages' xe
+    # less their inbox sums; z, the solution in slot order with its trailing
+    # zero slot (rows padded to 4 floats); the contribution buffer [zero |
+    # contributions] (the kernel writes both zeros before it reads them)
+    zs = -(-(total + 1) // 4) * 4
     bs = 1 + mf.total_contrib
-    x = torch.empty((rows, xs), dtype=torch.float32, device=dev)
+    x = torch.empty((rows, zs), dtype=torch.float32, device=dev)
     z = torch.empty((rows, zs), dtype=torch.float32, device=dev)
     buf = torch.empty((rows, bs), dtype=torch.float32, device=dev)
     out = torch.empty((rows, n), dtype=torch.float32, device=dev)
     lib = MF_FUSED_KERNEL.get()
     rc = lib.mf_fused_solve_f32(
         mf.desc.data_ptr(), mf.desc.shape[0], STAGE_WORDS, mf.flat_stacks.data_ptr(),
-        mf.flat_bd.data_ptr(), mf.flat_inbox.data_ptr(), mf.perm.data_ptr(),
-        mf.ipos.data_ptr(), bb.data_ptr(), out.data_ptr(), x.data_ptr(), z.data_ptr(),
-        buf.data_ptr(), rows, n, total, xs, zs, bs, _stream(dev),
+        mf.flat_bd.data_ptr(), mf.flat_inbox.data_ptr(), mf.perm.data_ptr(), bb.data_ptr(),
+        out.data_ptr(), x.data_ptr(), z.data_ptr(), buf.data_ptr(), rows, mf.max_front, n,
+        total, zs, bs, None if trace is None else trace.data_ptr(), _stream(dev),
     )
     _raise_on(rc, "F multifrontal_solve_fused")
     multifrontal_solve_fused.launches += 1
@@ -219,6 +266,26 @@ def multifrontal_solve_fused(mf, b: torch.Tensor) -> torch.Tensor:
 
 
 multifrontal_solve_fused.launches = 0
+
+
+def fused_phase_times(mf, b: torch.Tensor) -> list[dict]:
+    """One traced F launch on ``b``: the device time of each phase (from
+    the card's global timer, read by one thread after every grid sync; a
+    traced launch adds one sync at its end) with the bytes of the stack it
+    reads. Returns [{"phase", "stages", "us", "bytes"}] in launch order."""
+    labels = phase_labels(mf)
+    trace = torch.zeros(len(labels) + 1, dtype=torch.int64, device=mf.flat_stacks.device)
+    _solve_cuda(mf, b, trace=trace)
+    t = trace.cpu().tolist()
+
+    def nbytes(ph, st):
+        if ph == "inbox":
+            return sum(tb.nbytes for tb in st.inbox)
+        return getattr(st, ph).nbytes if ph in ("inv", "fbi", "ginv") else 0
+
+    return [{"phase": ph, "stages": sis, "us": (t[k + 1] - t[k]) / 1e3,
+             "bytes": sum(nbytes(ph, mf.stages[si]) for si in sis)}
+            for k, (ph, sis) in enumerate(labels)]
 
 
 # ── P2, P3, P4 on their own ──────────────────────────────────────────────────

@@ -4,7 +4,10 @@ gather-sum), each with its plain torch version.
 - :func:`stack_matvec`: ``out[..., m, p] = Σ_q a[m, p, q] · v[..., m, q]``,
   one stage's factor stack against its vectors. The port of the TPU kernel
   K2 (``flowcontrol_tpu/ops/pallas_mf_matvec.py``: ``_mv_kernel``), which
-  the JAX sweep runs as ``einsum("mpq,...mq->...mp")``.
+  the JAX sweep runs as ``einsum("mpq,...mq->...mp")``. Up to
+  :data:`K2_NARROW_MAX` right-hand sides take the narrow instance (a
+  warp per row, v in shared memory); wider batches a tiled f32 product
+  per node that reads each tile of ``a`` once per 64 right-hand sides.
 - :func:`gather_sum_sub`: ``out[..., j] = xe[..., j] − Σ_k buf[..., t[k, j]]``,
   one inbox segment of the forward sweep. The port of the TPU probe P1
   (``tools/pallas_gather_probe.py``: ``take_2d_table``), which is the JAX
@@ -25,9 +28,13 @@ import torch
 
 from flowcontrol_tpu_torch.ops.cuda_build import CudaLibrary
 
-#: largest q the K2 kernel stages in shared memory for 8 right-hand sides
-#: (227 KB per block on Hopper)
+#: largest q the narrow K2 instance (at most K2_NARROW_MAX right-hand
+#: sides) stages in shared memory for 8 right-hand sides (227 KB per block
+#: on Hopper); the wide instance takes any q
 K2_MAX_Q = (227 * 1024) // (8 * 4)
+#: most right-hand sides the narrow K2 instance takes; wider batches go to
+#: the tiled product (csrc/mf_sweep.cu: stack_matmul_kernel)
+K2_NARROW_MAX = 8
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -92,11 +99,12 @@ def _stack_matvec_cuda(a, v, out):
     _check_cuda("v", v, dev, torch.float32)
     if not a.is_contiguous():
         raise ValueError("K2 needs a contiguous factor stack a (m, p, q)")
-    if q > K2_MAX_Q:
-        raise ValueError(f"K2 stages q <= {K2_MAX_Q} values in shared memory, got q={q}")
     if m > 65535:
         raise ValueError(f"K2 launches one grid row per stack node (<= 65535), got m={m}")
     batch, v_bs = _as_rows(v, (m, q), "v")
+    if batch <= K2_NARROW_MAX and q > K2_MAX_Q:
+        raise ValueError(f"K2 stages q <= {K2_MAX_Q} values in shared memory for up to "
+                         f"{K2_NARROW_MAX} right-hand sides, got q={q}")
     if out is None:
         out = torch.empty(v.shape[:-1] + (p,), dtype=torch.float32, device=dev)
     _check_cuda("out", out, dev, torch.float32)

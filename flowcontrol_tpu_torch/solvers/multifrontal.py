@@ -634,6 +634,12 @@ class MultifrontalLU:
         self.flat_inbox = torch.empty(n_inbox, dtype=torch.int32, device=dev)
 
         desc = np.zeros((self.n_depths, STAGE_WORDS), dtype=np.int64)
+        # slots some stage's bd holds (the trailing pad slot aside): a stage
+        # with none of them is a leaf stage for kernel F
+        held = np.zeros(self.total_slots + 1, dtype=bool)
+        for st_h in tables["stages"]:
+            held[st_h["bd"]] = True
+        held[self.total_slots] = False
         self.stages: list[MFStage] = []
         for di, (st_h, s) in enumerate(zip(tables["stages"], statics)):
             e, b, m, off, c_off, segs, o_stack, o_bd, seg_rec = s
@@ -657,7 +663,12 @@ class MultifrontalLU:
                         np.ascontiguousarray(st_h["inbox_ts"][ti][:, :ln]).astype(np.int32)))
                     inbox.append(t)
                     ti += 1
-            desc[di, : len(HEAD_FIELDS)] = (e, b, m, off, c_off, *o_stack, o_bd, len(seg_rec))
+            n_bd = int((st_h["bd"] < self.total_slots).sum())
+            leaf = int(not held[off: off + m * e].any())
+            if leaf and any(tabbed for (_, _, tabbed) in segs):
+                raise AssertionError(f"stage {di} receives inbox sums but no bd holds its slots")
+            desc[di, : len(HEAD_FIELDS)] = (e, b, m, off, c_off, *o_stack, o_bd, n_bd, leaf,
+                                            len(seg_rec))
             for k, rec in enumerate(seg_rec):
                 base = len(HEAD_FIELDS) + k * len(SEG_FIELDS)
                 desc[di, base: base + len(SEG_FIELDS)] = rec
@@ -666,8 +677,9 @@ class MultifrontalLU:
                 inv=views[0], ginv=views[1], fbi=views[2], bd=bd, inbox=tuple(inbox),
             ))
         self.desc = idx(desc)
-        #: the largest stage's slots (m·e): kernel F's scratch for z
-        self.max_stage_slots = max(s.m * s.e for s in self.stages)
+        #: the largest front or boundary of any stage (a multiple of 8): the
+        #: length of one node's vector, which kernel F stages in shared memory
+        self.max_front = max(max(s.e, s.b) for s in self.stages)
 
     # ── public API ──────────────────────────────────────────────────────────
 
@@ -930,10 +942,10 @@ def multifrontal_solve(mf: MultifrontalLU, b: torch.Tensor) -> torch.Tensor:
     """x = A^-1 b for b (..., n) on ``mf.device``.
 
     One dataflow for any leading batch (the JAX package's ``_solve_threaded``):
-    a preallocated work vector x (B, total + 1) in stage-slot order, whose
-    trailing slot stays zero for the boundary pads, and a contribution
-    buffer (B, 1 + total_contrib) with a zero at position 0 for the inbox
-    pads. Forward sweep, deepest stage first: xe ← xe − Σ inbox (P1, in
+    a preallocated work vector x (B, total + 1 rounded up to 4) in
+    stage-slot order, whose trailing slots stay zero for the boundary pads,
+    and a contribution buffer (B, 1 + total_contrib) with a zero at
+    position 0 for the inbox pads. Forward sweep, deepest stage first: xe ← xe − Σ inbox (P1, in
     place, one launch per tabbed segment); z = inv·xe (K2); the stage's
     boundary updates fbi·z (K2) go straight into its slice of the buffer;
     z is written over xe. Backward sweep, root first: x[stage] ← z −
@@ -951,9 +963,13 @@ def multifrontal_solve(mf: MultifrontalLU, b: torch.Tensor) -> torch.Tensor:
     dev = bb.device
     total, n_stages = mf.total_slots, len(mf.stages)
 
-    # slot -> dof: pad slots (perm == n) read the appended zero, and so does
-    # the trailing slot, which the boundary pads point at
-    x = torch.nn.functional.pad(bb, (0, 1))[:, mf.perm]
+    # slot -> dof: pad slots (perm == n) read the appended zero, and so do
+    # the trailing slot, which the boundary pads point at, and the slots that
+    # round each row of x up to 16 bytes (K2's wide instance then copies
+    # its stage slices in 16-byte pieces)
+    xs = -(-(total + 1) // 4) * 4
+    x = torch.nn.functional.pad(bb, (0, 1))[
+        :, torch.nn.functional.pad(mf.perm, (0, xs - total - 1), value=n)]
     buf = torch.zeros((rows, 1 + mf.total_contrib), dtype=dtype, device=dev)
 
     for si, st in enumerate(mf.stages):

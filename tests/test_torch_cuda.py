@@ -13,10 +13,14 @@ package, so it also runs on a GPU machine without them:
   f64 run's peak and the 10-step field within 5e-4, the f32 tolerances of
   the reference's own f32 path.
 - Kernels K2 and P1 (``csrc/mf_sweep.cu``) against their plain torch
-  versions at batch 1 and 4 (K2 also at 2 and 9, its other instances and a
-  second pass over a; at stage shapes that are multiples of 8 and one that
-  is not; P1 on a random inbox table): relative error <= 1e-5,
-  one counted launch per call; a CUDA tensor they do not take is refused.
+  versions at batch 1 and 4 (K2 also at 2 and 9, its other instances; at
+  stage shapes that are multiples of 8 and one that is not; P1 on a random
+  inbox table): relative error <= 1e-5, one counted launch per call; a
+  CUDA tensor they do not take is refused. K2's wide instance (the tiled
+  product) at batch 9, 64, 100 and 256, on stage shapes with p or q = 8,
+  widths that are not a multiple of its 64-wide tiles and a 1,528 front,
+  through strided v and out: also bitwise repeatable, and writing nothing
+  outside out.
 - Kernel K3 (``csrc/block_trisolve.cu``) against its plain torch version
   ``block_lu_solve`` on a ``BlockLU`` factor built on the card, at sizes
   that pad (n % bs != 0) and that do not, block sizes 16 to 256, batch 1
@@ -25,8 +29,8 @@ package, so it also runs on a GPU machine without them:
   launch per solve, float64 refused.
 - Kernel F (``csrc/mf_fused.cu``) against its plain torch version
   ``multifrontal_solve_fused_plain`` and against the per-stage K2/P1 sweep
-  on a small cavity factor built on the card (f32, 3,486 dofs), rows 1, 3
-  and 8: relative error <= 1e-5, two calls bitwise equal, one counted
+  on a small cavity factor built on the card (f32, 3,486 dofs), rows 1, 3,
+  4 and 8: relative error <= 1e-5, two calls bitwise equal, one counted
   launch per solve; ``MultifrontalLU.solve`` takes F up to
   ``FUSED_MAX_ROWS`` rows and the per-stage sweep past that; F refuses 9
   rows.
@@ -136,6 +140,36 @@ def test_torch_cuda_k2_matches_plain(cuda, batch, m, p, q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [9, 64, 100, 256])
+@pytest.mark.parametrize("m,p,q", [(6, 280, 744), (1, 1528, 1528), (3, 8, 216), (5, 216, 8),
+                                   (2, 37, 13), (40, 24, 40)])
+def test_torch_cuda_k2_wide_matches_plain(cuda, batch, m, p, q):
+    """The tiled product past 8 right-hand sides, on strided v and out as
+    the sweep passes them (xe a row slice of the work vector, out a slice
+    of the contribution buffer): rows 16-byte aligned, as the sweep lays
+    them out (16-byte copies), and not (4-byte copies)."""
+    rng = np.random.default_rng(batch * 7 + m * p + q)
+    a = torch.as_tensor(rng.standard_normal((m, p, q)), dtype=torch.float32, device=cuda)
+    for pad in (12, 9):  # a row stride of m q + 12 keeps rows aligned when q % 4 == 0
+        x = torch.as_tensor(rng.standard_normal((batch, m * q + pad)), dtype=torch.float32,
+                            device=cuda)
+        v = x[:, 4: 4 + m * q].view(batch, m, q)
+        buf = torch.full((batch, m * p + 7), 7.0, dtype=torch.float32, device=cuda)
+        out = buf[:, 1: 1 + m * p].view(batch, m, p)
+        ref = stack_matvec_plain(a, v)
+        before = stack_matvec.launches
+        got = stack_matvec(a, v, out=out)
+        again = stack_matvec(a, v)
+        torch.cuda.synchronize()
+        assert stack_matvec.launches == before + 2
+        assert got.data_ptr() == out.data_ptr() and again.shape == (batch, m, p)
+        assert torch.equal(got, again)  # one fixed order over q: bitwise repeatable
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+        # nothing written outside out
+        assert bool((buf[:, 0] == 7.0).all()) and bool((buf[:, 1 + m * p:] == 7.0).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 4])
 def test_torch_cuda_p1_matches_plain(cuda, batch):
     rng = np.random.default_rng(batch)
@@ -200,7 +234,7 @@ def cavity_factor(tmp_path_factory):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("rows", [1, 3, 4, 8])
 def test_torch_cuda_f_matches_plain(cuda, cavity_factor, rows):
     mf = cavity_factor
     b = torch.as_tensor(np.random.default_rng(rows).standard_normal((rows, mf.n)),

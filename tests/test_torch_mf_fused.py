@@ -130,8 +130,9 @@ def test_torch_mf_fused_descriptor_invariants(factors, flow):
         bd = mf.flat_bd[h["bd"]: h["bd"] + st.m * st.b]
         assert torch.equal(bd, st.bd.reshape(-1)) and bd.data_ptr() == st.bd.data_ptr()
         # boundary pads point at the work vector's trailing zero slot, real
-        # entries at strict ancestors' slots
+        # entries at strict ancestors' slots; n_bd counts the real ones
         real = bd < mf.total_slots
+        assert h["n_bd"] == int(real.sum())
         assert (bd[~real] == mf.total_slots).all()
         assert (bd[real] >= st.off + st.m * st.e).all()
         assert [(sg["m0"], sg["m1"], bool(sg["tabbed"])) for sg in segs] == list(st.segs)
@@ -145,9 +146,33 @@ def test_torch_mf_fused_descriptor_invariants(factors, flow):
             assert (t == 0).any()
             n_tabbed += 1
     assert n_tabbed == sum(len(s.inbox) for s in mf.stages) >= 2
-    assert mf.max_stage_slots == max(s.m * s.e for s in mf.stages)
-    assert mf_fused.grid_syncs(mf) == 1 + 3 * len(mf.stages) + sum(
-        any(sg["tabbed"] for sg in segs) for _, segs in recs)
+    # F stages one node's vector of up to max_front floats per right-hand side
+    assert mf.max_front == max(max(s.e, s.b) for s in mf.stages) and mf.max_front % 8 == 0
+    # only the root has no real bd slot, and so no backward phase; the
+    # leaf stage reads no inbox
+    assert [h["n_bd"] == 0 for h, _ in recs] == [False] * (len(recs) - 1) + [True]
+    assert not any(sg["tabbed"] for sg in recs[0][1])
+    # a leaf stage: no stage's bd holds one of its slots; exactly the
+    # stages without a tabbed inbox segment, and never the root
+    held = torch.zeros(mf.total_slots + 1, dtype=torch.bool)
+    held[mf.flat_bd] = True
+    held[mf.total_slots] = False
+    leaves = []
+    for si, ((h, segs), st) in enumerate(zip(recs, mf.stages)):
+        assert h["leaf"] == int(not held[st.off: st.off + st.m * st.e].any())
+        assert h["leaf"] == int(not any(sg["tabbed"] for sg in segs))
+        leaves += [si] * h["leaf"]
+    assert 0 < len(leaves) < len(mf.stages) - 1 and not recs[-1][0]["leaf"]
+    # phases: the leaf stages' inv and fbi together; per other stage an
+    # inbox pass, inv and fbi (none at the root); backward, one per other
+    # stage but the root, then the leaf stages together; a sync between each
+    labels = mf_fused.phase_labels(mf)
+    inner = len(mf.stages) - len(leaves)
+    assert labels[:2] == [("inv", tuple(leaves)), ("fbi", tuple(leaves))]
+    assert len(labels) == 2 + 3 * inner - 1 + (inner - 1) + 1
+    assert labels[-1] == ("ginv", tuple(leaves))
+    assert labels[-2] == ("ginv", (min(set(range(len(recs))) - set(leaves)),))
+    assert mf_fused.grid_syncs(mf) == len(labels) - 1
 
 
 def test_torch_mf_fused_cpu_routing(factors):

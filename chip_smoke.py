@@ -13,7 +13,9 @@ fails or no CUDA device is present:
 2. K1 against its plain torch version at the 56,383-dof default cylinder
    mesh, batch 1, 4, 64 and 256 (the single stream's and the batched
    paths' widths): max |kernel - plain| / max |plain| <= 1e-5 (f32 with a
-   different summation order), device times of both beside the bound;
+   different summation order), two calls bitwise equal, one counted launch
+   per call; its patch count and halo share; device times (queued CUDA
+   events) of both beside the bound;
 3. the main path: ``CylinderFlowSolver.make_default(Re=100)`` on ``cuda``
    (f32), Picard then Newton on the host (cd0 within 1e-6 relative of the
    JAX package's 1.1413636679 on this mesh), then 200 ``fs.step`` calls
@@ -27,7 +29,7 @@ fails or no CUDA device is present:
    a torch.profiler trace of 10 ``fs.step`` calls giving the device's busy
    share and its top kernels; the device time of the pivoted factor's solve
    (the permutation and two ``solve_triangular``) for 1 and 256 right-hand
-   sides, the library call K3 is held beside;
+   sides (queued CUDA events), the library call K3 is held beside;
 6. the multifrontal main path at the same 56,383 dofs: a second
    ``make_default(Re=100)`` on ``cuda`` with
    ``stepper_options={"force_substructure": True}`` and the first run's base
@@ -36,8 +38,8 @@ fails or no CUDA device is present:
    200 ``fs.step`` calls with phase 3's controls. All y and dE finite; K1
    launched steps + 1 times, and every single-stream solve one launch of
    kernel F (``csrc/mf_fused.cu``): F launched once per solve (1 + 20
-   borrowed sweeps on step 1, then one per step, doubled by a refinement
-   sweep when the factor asks for one; none in ``init_carry``), K2 and P1
+   borrowed sweeps on step 1, then one per step, doubled by the refinement
+   sweep every f32 factor takes; none in ``init_carry``), K2 and P1
    never;
 7. K2 and P1 against their plain versions on that factor's stacks and inbox
    tables, every stage, batch 1 (the main path's) and 4: max |kernel -
@@ -59,15 +61,17 @@ fails or no CUDA device is present:
     on the card (seconds, peak device memory), solve kinds
     ``['borrowed', 'block']``, 200 ``fs.step`` calls with phase 3's
     controls. All y and dE finite; K1 launched steps + 1 times and K3
-    3 nb - 2 times per solve (21 solves on the borrowed first step, then
-    one per step; one call of the C entry point makes a solve's launches);
-    y[-1] within 1e-3 of the dense path's;
+    3 nb - 2 times per solve at one right-hand side (21 solves on the
+    borrowed first step, then two per step: the solve and its refinement
+    sweep; one call of the C entry point makes a solve's launches); y[-1]
+    within 1e-3 of the dense path's;
 11. K3 against its plain version on that factor, n = 56,383, bs = 1024,
     random right-hand sides, batch 1, 4 and 256 (every width the paths
-    give it): max |kernel - plain| / max |plain| <= 1e-5 and two calls
-    bitwise equal. Device time per solve
-    (torch.profiler) of K3 and plain at batch 1 and 256, each beside its
-    bound and phase 5's library time;
+    give it; past one right-hand side one persistent launch walks the
+    panel schedule): max |kernel - plain| / max |plain| <= 1e-5 and two
+    calls bitwise equal. Device time per solve (queued CUDA events) of K3
+    and plain at batch 1 and 256, each beside its bound and phase 5's
+    library time;
 12. accuracy: from the block path's carry after step 10, 10 more f32 steps
     against the host float64 loop: relative field error <= 5e-4;
 13. batched open loop on the block and the multifrontal path (the
@@ -99,7 +103,8 @@ fails or no CUDA device is present:
     time beside F's bound, grid and grid syncs; one traced launch at rows 1
     and 8, its phases' device times summed by kind; P2, P3 and P4 on their own at the
     probe's shapes (v (8, 1024) and (8, 128) lanes; offsets 640 and 256),
-    bitwise equal to their plain versions;
+    bitwise equal to their plain versions, timed beside their library calls
+    (``torch.gather``, ``torch.narrow_copy``, ``Tensor.index_add_``);
 17. the open cavity, single stream: ``CavityFlowSolver.make_default(Re=7500)``
     on ``cuda`` (f32) at its generated default mesh (~120k dofs, past the
     dense range, so the multifrontal solve without ``force_substructure``);
@@ -242,6 +247,29 @@ def queued_ms(fn, reps: int = 20, sleep_cycles: int = 100_000_000) -> tuple[floa
     return start.elapsed_time(end) / reps, host_ms
 
 
+def events_ms(fn, reps: int = 20) -> float:
+    """Device ms per call of ``fn`` from :func:`queued_ms`, behind a device
+    sleep three times as long as the host took to enqueue the calls in a
+    trial pass (at least the ~50 ms default); fails when the host still
+    took longer than the card slept (the events would then time the
+    host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_trial = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = max(50.0, 3.0 * host_trial)
+    # torch.cuda._sleep spins the card for a number of its clock cycles:
+    # ~2e6 a millisecond at the H100's clock
+    ms, host_ms = queued_ms(fn, reps=reps, sleep_cycles=int(sleep_ms * 2e6))
+    if not host_ms < 0.8 * sleep_ms:
+        raise AssertionError(f"{reps} calls took {host_ms:.1f} ms to enqueue, past the "
+                             f"{sleep_ms:.0f} ms sleep")
+    return ms
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """Least time in ms for moving ``nbytes`` and doing ``flops`` f32
     operations on the card, and which of the two bounds it."""
@@ -256,39 +284,62 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 
 def phase_kernel(space, geom, dev, widths=(1, 4, 64, BATCH), tag="phase 2") -> dict:
     """K1 vs its plain version on the main path's tables at each batch
-    width: the single stream's 1, and the batched paths' 64 and 256."""
+    width: the single stream's 1, and the batched paths' 64 and 256; two
+    calls bitwise equal, one counted launch per call."""
     from flowcontrol_tpu_torch.ops.nl import (
+        NL_KERNEL,
         NLTables,
         nonlinear_convection,
         nonlinear_convection_plain,
+        sample_tile,
     )
 
+    t0 = time.perf_counter()
     tables = NLTables.build(geom, space, dev, torch.float32)
+    torch.cuda.synchronize()
+    pt = tables.patches
+    log(f"{tag}: K1 tables built in {time.perf_counter() - t0:.3f} s: {pt.n_patches} patches of "
+        f"{pt.cells} cells along a Morton curve, up to {pt.nodes.shape[1]} nodes and "
+        f"{pt.slots.shape[2]} contributions a node; {len(pt.halo_node)} of the "
+        f"{space.n_vnodes} velocity nodes on a patch boundary (halo share "
+        f"{pt.halo_share:.4f}), {len(pt.slot_halo)} partial slots")
     rng = np.random.default_rng(0)
-    res = {"max_abs_err": 0.0, "widths": {}}
-    # one call reads u, the cell tables and the gather table once and writes
-    # N(u); ~104 flops per cell and quadrature point (12 FMAs per node for
-    # u_q and grad u_q, the convection, 24 for the projection)
+    res = {"max_abs_err": 0.0, "widths": {}, "n_patches": pt.n_patches,
+           "halo_share": pt.halo_share}
+    # one call reads u and K1's tables once and writes N(u); ~104 flops per
+    # cell and quadrature point (12 FMAs per node for u_q and grad u_q, the
+    # convection, 24 for the projection)
     nc = tables.cell_vel_nodes.shape[0]
-    table_bytes = sum(t.nbytes for t in (tables.cell_vel_nodes, tables.dphi2, tables.wq,
-                                         tables.phi2, tables.gt_vel))
+    table_bytes = tables.phi2.nbytes + sum(t.nbytes for t in tables.patch_dev.values())
     for b in widths:
         u = torch.as_tensor(
             rng.standard_normal((b, space.n_dofs)), dtype=torch.float32, device=dev
         )
+        before = nonlinear_convection.launches
         got = nonlinear_convection(tables, u)
+        again = nonlinear_convection(tables, u)
         ref = nonlinear_convection_plain(tables, u)
         torch.cuda.synchronize()
+        calls = nonlinear_convection.launches - before
+        same = torch.equal(got, again)
         abs_err = float((got - ref).abs().max())
         rel = abs_err / float(ref.abs().max())
+        if not (same and calls == 2):
+            raise AssertionError(f"K1 at B={b}: two calls bitwise equal {same}, {calls} "
+                                 f"counted launches for 2 calls")
         span = cuda_time_ms(lambda: nonlinear_convection(tables, u))
-        ms = device_ms([lambda: nonlinear_convection(tables, u)])
-        plain_ms = device_ms([lambda: nonlinear_convection_plain(tables, u)])
+        ms = events_ms(lambda: nonlinear_convection(tables, u))
+        # the plain version's einsums allocate large temporaries and can
+        # stall the host on the allocator, so its device time comes from
+        # the profiler (kernels and copies only)
+        plain_ms = device_ms([lambda: nonlinear_convection_plain(tables, u)], reps=5)
         bnd, bnd_by = bound(table_bytes + 2 * 4 * b * space.n_dofs, b * nc * 7 * 104)
         log(f"{tag}: K1 B={b} n={space.n_dofs}: max|k-p|/max|p| = {rel:.3e} "
-            f"(tol {K1_TOL:g}), max|k-p| = {abs_err:.3e}; device time: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({bnd_by}); CUDA-event span of the "
-            f"kernel {span:.4f} ms")
+            f"(tol {K1_TOL:g}), max|k-p| = {abs_err:.3e}, two calls bitwise equal; "
+            f"{sample_tile(b, pt.n_patches, NL_KERNEL.get().nl_samples_per_pass())} samples a "
+            f"block; device time (queued "
+            f"events): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms "
+            f"({bnd_by}, {bnd / ms:.3f} of it); CUDA-event span of the kernel {span:.4f} ms")
         if not rel <= K1_TOL:
             raise AssertionError(f"K1 disagrees with its plain version at B={b}: {rel:.3e}")
         res["max_abs_err"] = max(res["max_abs_err"], abs_err)
@@ -572,11 +623,19 @@ def phase_k2_wide(mf, batch: int, tag: str) -> dict:
 
 def phase_k3(blu, library_ms: dict) -> dict:
     """K3 against its plain version on the block path's factor, batch 1, 4
-    and BATCH (the widths the single-stream and the batched paths give it;
-    BATCH spans several column tiles of the panel kernel); device times of
-    K3 and plain at batch 1 and BATCH beside the bound. Returns one result
-    per timed batch width, each with the error measured at its own width."""
-    from flowcontrol_tpu_torch.ops.trisolve import block_lu_solve_fused
+    and BATCH (the widths the single-stream and the batched paths give it:
+    the GEMV launches at 1, the persistent panel launch past it); device
+    times of K3, plain and the library call (phase 5's pivoted solve) at
+    batch 1 and BATCH beside the bound, from queued CUDA events. Returns one
+    result per timed batch width, each with the error measured at its own
+    width."""
+    from flowcontrol_tpu_torch.ops.trisolve import (
+        block_lu_solve_fused,
+        launches_per_solve,
+        panel_ldx,
+        panel_schedule,
+        tiles_per_block,
+    )
     from flowcontrol_tpu_torch.solvers.block_lu import block_lu_solve
 
     dev, n, bs = blu.lu.device, blu.n, blu.bs
@@ -595,23 +654,37 @@ def phase_k3(blu, library_ms: dict) -> dict:
         rel, abs_err = rel_err(got, ref)
         same = torch.equal(got, again)
         log(f"phase 11: K3 B={b} n={n} n_pad={blu.n_pad} bs={bs}: max|k-p|/max|p| = {rel:.3e} "
-            f"(tol {K3_TOL:g}), max|k-p| = {abs_err:.3e}, two calls bitwise equal: {same}")
+            f"(tol {K3_TOL:g}), max|k-p| = {abs_err:.3e}, two calls bitwise equal: {same}; "
+            f"{launches_per_solve(blu.nb, b)} launch(es) per solve")
         if not (rel <= K3_TOL and same and bool(torch.isfinite(got).all())):
             raise AssertionError(f"K3 at B={b}: error {rel:.3e} against plain, repeatable {same}")
         max_abs[b] = abs_err
         del got, again, ref
+    tpb, ns = tiles_per_block(bs), panel_ldx(BATCH) // 64
+    sched = panel_schedule(blu.nb, tpb, ns)
+    split = sched[:, 3] >= 0
+    log(f"phase 11: K3's panel schedule at B={BATCH}: {len(sched)} items of 64 rows over "
+        f"{blu.nb} block rows ({tpb} tiles each); {int(split.sum())} of them 64-column slices "
+        f"next to the critical path, so {int(split.sum()) // ns} of the "
+        f"{int((~split).sum()) + int(split.sum()) // ns} tiles of lu and dinv "
+        f"({int(split.sum()) // ns / (int((~split).sum()) + int(split.sum()) // ns):.3f}) are read "
+        f"by {ns} blocks that run together, the others by one; one persistent launch per solve; "
+        f"one right-hand side takes {launches_per_solve(blu.nb, 1)} GEMV launches")
     out = {}
     for b in (1, BATCH):
         rhs = rand(b)
         r = dict(max_abs_err=max_abs[b], library_ms=library_ms[b])
-        r["ms"] = device_ms([lambda: block_lu_solve_fused(blu.tree(), rhs, bs=bs, n=n)], reps=5)
+        # 3 solves: at one right-hand side 498 launches, which the launch
+        # queue holds while the card sleeps
+        r["ms"] = events_ms(lambda: block_lu_solve_fused(blu.tree(), rhs, bs=bs, n=n), reps=3)
+        # plain's temporaries can stall the host on the allocator: profiler
         r["plain_ms"] = device_ms([lambda: block_lu_solve(blu.tree(), rhs, bs=bs, n=n)], reps=5)
         # one solve reads every block of lu but the diagonal ones, and dinv
         # in their place (n_pad^2 values in all), b once, and writes x; each
         # value read is one multiply-add per right-hand side
         nbytes = 4.0 * blu.n_pad ** 2 + 2 * 4.0 * b * n
         r["bound_ms"], r["bound_by"] = bound(nbytes, 2.0 * blu.n_pad ** 2 * b)
-        log(f"phase 11: K3 B={b}: device time per solve: kernel {r['ms']:.3f} ms, plain "
+        log(f"phase 11: K3 B={b}: device time per solve (queued events): kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, library (pivoted factor, solve_triangular) "
             f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
             f"{nbytes / 1e9:.3f} GB, {2.0 * blu.n_pad ** 2 * b:.3e} operations)")
@@ -857,6 +930,7 @@ def phase_probes(dev) -> dict:
     lanes = i32(rng.integers(0, n, (8, w)))
     s_ds, s_acc = i32([640]), i32([256])
     lanes64 = lanes.long()
+    rows_acc = torch.arange(256, 256 + w, device=dev)  # P4's offset, as index_add_ takes it
     out = {}
     cases = {
         "P2": (lambda: take_along_axis_lanes(v2, lanes),
@@ -866,9 +940,11 @@ def phase_probes(dev) -> dict:
                4.0 * (2 * 8 * w + int(torch.unique(lanes64 + n * torch.arange(8, device=dev)[:, None]).numel())),
                0.0),
         "P3": (lambda: dynamic_slice(v1, s_ds, w),
-               lambda: dynamic_slice_plain(v1, s_ds, w), None, 4.0 * (2 * w + 1), 0.0),
+               lambda: dynamic_slice_plain(v1, s_ds, w),
+               lambda: torch.narrow_copy(v1, 0, 640, w), 4.0 * (2 * w + 1), 0.0),
         "P4": (lambda: dynamic_offset_accum_store(v1.clone(), s_acc, v1[:w]),
-               lambda: dynamic_offset_accum_store_plain(v1.clone(), s_acc, v1[:w]), None,
+               lambda: dynamic_offset_accum_store_plain(v1.clone(), s_acc, v1[:w]),
+               lambda: v1.clone().index_add_(0, rows_acc, v1[:w]),
                4.0 * (3 * w + 1), float(w)),
     }
     for name, (kern, plain, lib, nbytes, flops) in cases.items():
@@ -879,7 +955,8 @@ def phase_probes(dev) -> dict:
         r["ms"], r["plain_ms"] = device_ms([kern]), device_ms([plain])
         r["library_ms"] = device_ms([lib]) if lib is not None else None
         r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
-        lib_s = f", torch.gather {r['library_ms']:.4f} ms" if lib is not None else ""
+        lib_name = {"P2": "torch.gather", "P3": "torch.narrow_copy", "P4": "index_add_"}[name]
+        lib_s = f", {lib_name} {r['library_ms']:.4f} ms" if lib is not None else ""
         log(f"phase 16: {name} at the probe's shapes: bitwise equal to plain: {same}; device "
             f"time kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib_s}, bound "
             f"{r['bound_ms']:.3e} ms ({r['bound_by']})")
@@ -1076,8 +1153,10 @@ def main() -> int:
     blk = run_path(fs3, counters)
     st3 = blk["st"]
     blu = st3._solvers[st3._order_idx[2]]
-    k3_solves = (1 + st3.BORROW_ITERS) + (NUM_STEPS - 1)
-    k3_per = launches_per_solve(blu.nb)
+    refine3 = st3._refine.get(st3._order_idx[2], 0)
+    k3_solves = (1 + st3.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + refine3)
+    k3_per = launches_per_solve(blu.nb, 1)  # the single stream: one right-hand side
+    k3_panel = launches_per_solve(blu.nb, BATCH)  # the batched paths: one persistent launch
     expected = [NUM_STEPS + 1, 0, 0, k3_solves * k3_per, 0]
     y_rel = float(np.abs(blk["ys"][-1] - dense["ys"][-1]).max() / np.abs(dense["ys"][-1]).max())
     log(f"phase 10: solve kinds {st3._solver_kinds} (expected ['borrowed', 'block']), dtype "
@@ -1092,7 +1171,8 @@ def main() -> int:
         f"{card}); y[-1] = {blk['ys'][-1].tolist()}, relative to the dense path's {y_rel:.3e} "
         f"(tol 1e-3), dE[-1] = {blk['de'][-1]:.6e}")
     log(f"phase 10: launches K1/K2/P1/K3/F {blk['launches']} (expected {expected}: "
-        f"{k3_solves} solves of {k3_per} K3 launches, all made by one call of the C entry point)")
+        f"{k3_solves} solves of {k3_per} K3 launches, all made by one call of the C entry point; "
+        f"a panel of right-hand sides takes {k3_panel} launch per solve)")
     if st3._solver_kinds != ["borrowed", "block"] or not isinstance(blu, BlockLU):
         raise AssertionError(f"solve kinds {st3._solver_kinds}")
     if blk["launches"] != expected:
@@ -1108,11 +1188,11 @@ def main() -> int:
 
     # ── phase 13: batched open loop, both paths ──────────────────────────────
     up = fs3._carry.u_n.double().cpu().numpy()  # the block path's state after its steps
-    solves_b = (1 + st3.BORROW_ITERS) + (BATCH_STEPS - 1)
+    solves_b = (1 + st3.BORROW_ITERS) + (BATCH_STEPS - 1) * (1 + refine3)
     open_blk = phase_batched_open(st3, up, counters, "phase 13 (block)")
     open_mf = phase_batched_open(st2, up, counters, "phase 13 (multifrontal)")
     solves_mf = (1 + st2.BORROW_ITERS) + (BATCH_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
-    expected_open = {"block": [BATCH_STEPS + 1, 0, 0, solves_b * k3_per, 0],
+    expected_open = {"block": [BATCH_STEPS + 1, 0, 0, solves_b * k3_panel, 0],
                      "multifrontal": [BATCH_STEPS + 1, solves_mf * k2_per, solves_mf * p1_per,
                                       0, 0]}
     for name, r in (("block", open_blk), ("multifrontal", open_mf)):
@@ -1128,7 +1208,7 @@ def main() -> int:
                                      "phase 14 (multifrontal)")
     per_step_mf = 1 + st2._refine.get(oi2, 0)
     expected_closed = {
-        "block": [BATCH_STEPS, 0, 0, BATCH_STEPS * k3_per, 0],
+        "block": [BATCH_STEPS, 0, 0, BATCH_STEPS * (1 + refine3) * k3_panel, 0],
         "multifrontal": [BATCH_STEPS, BATCH_STEPS * per_step_mf * k2_per,
                          BATCH_STEPS * per_step_mf * p1_per, 0, 0],
     }
@@ -1294,9 +1374,9 @@ def main() -> int:
         row("P2 take_along_axis_lanes", src + "mf_fused.cu", probe_src + ":65", f_launches,
             probes["P2"], probes["P2"]["library_ms"], launched_inside="F"),
         row("P3 dynamic_slice_smem_offset", src + "mf_fused.cu", probe_src + ":77", f_launches,
-            probes["P3"], None, launched_inside="F"),
+            probes["P3"], probes["P3"]["library_ms"], launched_inside="F"),
         row("P4 dynamic_offset_accum_store", src + "mf_fused.cu", probe_src + ":89",
-            f_launches, probes["P4"], None, launched_inside="F"),
+            f_launches, probes["P4"], probes["P4"]["library_ms"], launched_inside="F"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

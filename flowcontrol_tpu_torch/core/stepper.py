@@ -170,6 +170,8 @@ class Stepper:
     #: >= 3x, ~20 sweeps reach the f32 floor, paid once per run).
     DENSE_TWO_FACTOR_MAX_N = 30_000
     BORROW_ITERS = 20
+    #: refinement sweeps (f64 residual) after each solve by an f32 factor
+    REFINE_SWEEPS_F32 = 1
     _dev: dict = field(init=False, repr=False)
 
     def __post_init__(self):
@@ -216,8 +218,8 @@ class Stepper:
         d: dict = {"lift_act": [], "lift_static": [], "a_bc": {}, "a_refine": {}}
         self._solvers: list = []
         self._solver_kinds: list = []
-        #: refinement sweeps per order index (the multifrontal factor's
-        #: recommendation in f32; none for the dense LU and in f64)
+        #: refinement sweeps per order index (REFINE_SWEEPS_F32 for an f32
+        #: factor; none in f64)
         self._refine: dict = {}
         self._borrow_first = (
             self.backend == "dense_lu"
@@ -234,16 +236,14 @@ class Stepper:
             d["lift_static"].append(tensor(lift_cols @ bcs.values))
             del lift_cols
             if self._borrow_first and order == 1:
-                # no factor for BDF1: keep A1 (BC rows/cols eliminated) for
-                # the Richardson matvec
-                d["a_bc"][oi] = csr_to_device(a_bc, dev_t, dt)
+                # no factor for BDF1: keep A1 (BC rows/cols eliminated), in
+                # f64, for the Richardson matvec (its residual is taken in f64)
+                d["a_bc"][oi] = csr_to_device(a_bc, dev_t, torch.float64)
                 self._solvers.append(None)
                 self._solver_kinds.append("borrowed")
                 continue
             if dense:
-                # computed in f64 and stored in dt: rounding-limited, so no
-                # refinement sweep (reference: field err 2.2e-4 with 0 sweeps
-                # vs 1.8e-4 with 1, core/stepper.py:535-538)
+                # computed in f64 and stored in dt
                 if n > self.LAPACK_LU_MAX_N and self.trisolve == "cuda":
                     self._solvers.append(BlockLU(a_bc, bs=self.block_lu_bs, dtype=torch.float64,
                                                  store_dtype=dt, device=dev_t))
@@ -252,22 +252,26 @@ class Stepper:
                 self._solver_kinds.append("lapack" if n <= self.LAPACK_LU_MAX_N else "block")
             elif self.backend == "dense_lu":
                 # past the dense range: host-f64 multifrontal factors stored
-                # in dt; one refinement sweep when the measured per-solve
-                # error leaves the zero-sweep class (reference:
-                # core/stepper.py:428-458, 530-544). The sweep's residual is
-                # taken in f64 (A kept in f64 on the device): an f32
-                # residual cannot take the error below cond(A)·eps_f32, and
-                # at the Re=7500 cavity that floor is the pressure's ~5e-4
+                # in dt
                 mf = MultifrontalLU(a_bc, mixed_dof_coordinates(space), dev_t, dtype=dt)
                 self._solvers.append(mf)
                 self._solver_kinds.append("multifrontal")
-                if dt == torch.float32 and mf.recommended_refine:
-                    self._refine[self._order_idx[order]] = mf.recommended_refine
-                    d["a_refine"][self._order_idx[order]] = csr_to_device(
-                        a_bc, dev_t, torch.float64)
             else:
                 self._solvers.append(HostSparseLU(a_bc))
                 self._solver_kinds.append("host")
+            if dt == torch.float32 and self._solver_kinds[-1] != "host":
+                # every f32 factor takes one refinement sweep, its residual
+                # in f64 (A kept in f64 on the device): without it the f32
+                # solves drift in the pressure and the reference's f32 pin
+                # (field error below 1e-4 after a few steps,
+                # tests/test_torch_cuda.py test_torch_cuda_f32_pin) fails on
+                # the dense, block and multifrontal paths. The reference
+                # refines its multifrontal factor only past a measured
+                # per-solve error (core/stepper.py:428-458), which does not
+                # predict that drift. An f32 residual cannot take the error
+                # below cond(A)·eps_f32.
+                self._refine[oi] = self.REFINE_SWEEPS_F32
+                d["a_refine"][oi] = csr_to_device(a_bc, dev_t, torch.float64)
             logger.info("prepare order=%s: %s solve", order, self._solver_kinds[-1])
 
         d["m"] = csr_to_device(
@@ -341,12 +345,13 @@ class Stepper:
         if self._solver_kinds[oi] == "borrowed":
             # BDF1 first step in the single-factor regime: Richardson
             # iteration preconditioned by the BDF2 factor
+            # (residual and iterate in f64, as in the refinement below)
             oi2 = self._order_idx[2]
-            a1 = self._dev["a_bc"][oi]
-            x = self._solve_once(oi2, rhs)
+            a1, b64 = self._dev["a_bc"][oi], rhs.double()
+            x = self._solve_once(oi2, rhs).double()
             for _ in range(self.BORROW_ITERS):
-                x = x + self._solve_once(oi2, rhs - sparse_matvec(a1, x))
-            return x
+                x = x + self._solve_once(oi2, (b64 - sparse_matvec(a1, x)).to(self.dtype)).double()
+            return x.to(self.dtype)
         x = self._solve_once(oi, rhs)
         sweeps = self._refine.get(oi, 0)
         if sweeps:

@@ -142,7 +142,7 @@ def test_torch_cavity_committed_baseflow_needs_matching_mesh(pair, tmp_path, mon
     assert committed_baseflow(ft) is None
 
 
-def test_torch_cavity_f32_refinement_residual_in_f64(tmp_path, monkeypatch):
+def test_torch_cavity_f32_refinement_residual_in_f64(tmp_path):
     """The refinement sweep of an f32 multifrontal factor takes its residual
     in f64. On the Re=7500 cavity's BDF2 matrix an f32 residual leaves the
     solve at ~1e-4 relative (cond(A)·eps_f32, worst in the pressure; the
@@ -151,9 +151,7 @@ def test_torch_cavity_f32_refinement_residual_in_f64(tmp_path, monkeypatch):
     import scipy.sparse.linalg as spla
 
     from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
-    from flowcontrol_tpu_torch.solvers.multifrontal import MultifrontalLU
 
-    monkeypatch.setattr(MultifrontalLU, "ZERO_SWEEP_ERR", 0.0)  # every f32 factor refines
     fs = CavT.make_default(mesh=cavity_mesh_t(n_coarse=4, n_mid=8, n_fine=16), device="cpu",
                            precision="f32", solver_backend="dense_lu", path_out=tmp_path,
                            stepper_options={"force_substructure": True})

@@ -12,8 +12,7 @@ The multifrontal kind (``stepper_options={"force_substructure": True}``)
 is held to the JAX package's the same way over 10 steps (JAX factor cache
 off), with both orders factored and with the borrowed first step; the
 dense LU's size rule hands larger meshes to it ('dense_lu' and 'auto'); and
-its f32 refinement sweep runs when the measured per-solve error calls for
-one.
+every f32 factor takes one refinement sweep with an f64 residual.
 
 The blocked-LU kind (``trisolve="cuda"``: a ``BlockLU`` factor solved by the
 K3 wrapper, on the CPU its plain version) is held to the JAX Stepper with
@@ -127,9 +126,14 @@ def test_torch_rollout_open_loop_matches_steps(base_flow, tmp_path):
     assert torch.equal(carry_r.u_n, carry.u_n) and carry_r.it == 4
 
 
-def test_torch_stepper_f32_factor_paths(base_flow, tmp_path):
+@pytest.mark.parametrize("case", ["two_factors", "borrowed"])
+def test_torch_stepper_f32_factor_paths(base_flow, tmp_path, monkeypatch, case):
     """f32 stepping on the CPU against the port's own f64 run: the factor is
-    computed in f64 and stored f32, with no refinement sweep."""
+    computed in f64 and stored f32, and each solve takes one refinement
+    sweep with an f64 residual; the borrowed first step (BDF1 by Richardson
+    sweeps on the BDF2 factor) takes its residual in f64 too."""
+    if case == "borrowed":
+        monkeypatch.setattr(StepperT, "DENSE_TWO_FACTOR_MAX_N", 1000)
     runs = {}
     for prec in ("f64", "f32"):
         fs = CylT.make_default(Re=100, mesh=cylinder_mesh_t(**SMALL), path_out=tmp_path,
@@ -141,7 +145,13 @@ def test_torch_stepper_f32_factor_paths(base_flow, tmp_path):
         runs[prec] = fs
     st = runs["f32"]._stepper
     assert st.dtype == torch.float32
-    assert st._solvers[0].lu.dtype == torch.float32
+    assert st._solvers[-1].lu.dtype == torch.float32
+    assert st._dev["a_refine"][1].dtype == torch.float64
+    if case == "borrowed":
+        assert st._solver_kinds[0] == "borrowed" and st._refine == {1: 1}
+        assert st._dev["a_bc"][0].dtype == torch.float64
+    else:
+        assert st._refine == {0: 1, 1: 1}
     err = np.linalg.norm(runs["f32"].fields.up_ - runs["f64"].fields.up_) / np.linalg.norm(
         runs["f64"].fields.up_
     )
@@ -196,15 +206,13 @@ def test_torch_stepper_multifrontal_matches_jax(base_flow, tmp_path, monkeypatch
 
 
 def test_torch_stepper_multifrontal_refinement_sweep(base_flow, tmp_path, monkeypatch):
-    """With the zero-sweep ceiling at 0 every f32 multifrontal factor asks
-    for one refinement sweep: each step solves twice and stays within the
-    f32 class of the f64 run."""
+    """Every f32 multifrontal factor takes one refinement sweep: each step
+    solves twice and stays within the f32 class of the f64 run."""
     from flowcontrol_tpu_torch.solvers.multifrontal import MultifrontalLU
 
     runs, solves = {}, [0]
     for prec in ("f64", "f32"):
         if prec == "f32":
-            monkeypatch.setattr(MultifrontalLU, "ZERO_SWEEP_ERR", 0.0)
             solve = MultifrontalLU.solve
 
             def counted(self, b):

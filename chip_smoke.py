@@ -8,8 +8,9 @@ fails or no CUDA device is present:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
    the builds of kernel K1 (``csrc/nl_convection.cu``), kernels K2 and P1
-   (``csrc/mf_sweep.cu``) and kernel K3 (``csrc/block_trisolve.cu``), one
-   nvcc each, started together;
+   (``csrc/mf_sweep.cu``), kernel K3 (``csrc/block_trisolve.cu``), F and
+   P2-P4 (``csrc/mf_fused.cu``) and S (``csrc/csr_spmm.cu``), one nvcc
+   each, started together;
 2. K1 against its plain torch version at the 56,383-dof default cylinder
    mesh, batch 1, 4, 64 and 256 (the single stream's and the batched
    paths' widths): max |kernel - plain| / max |plain| <= 1e-5 (f32 with a
@@ -103,8 +104,10 @@ fails or no CUDA device is present:
     time beside F's bound, grid and grid syncs; one traced launch at rows 1
     and 8, its phases' device times summed by kind; P2, P3 and P4 on their own at the
     probe's shapes (v (8, 1024) and (8, 128) lanes; offsets 640 and 256),
-    bitwise equal to their plain versions, timed beside their library calls
-    (``torch.gather``, ``torch.narrow_copy``, ``Tensor.index_add_``);
+    bitwise equal to their plain versions, timed (queued CUDA events; the
+    plain versions, which read the offset on the host, by the events' span
+    of back-to-back calls) beside their library calls (``torch.gather``,
+    ``torch.narrow_copy``, ``Tensor.index_add_``);
 17. the open cavity, single stream: ``CavityFlowSolver.make_default(Re=7500)``
     on ``cuda`` (f32) at its generated default mesh (~120k dofs, past the
     dense range, so the multifrontal solve without ``force_substructure``);
@@ -126,11 +129,37 @@ fails or no CUDA device is present:
     (torch.profiler, 3 steps); K2's wide instance at B = 64 on the cavity's
     stages, as in phase 7, and K1 at B = 64 on the cavity mesh;
 21. where the cavity step's time goes, and the cylinder multifrontal step's
-    with F: torch.profiler over 10 ``fs.step`` calls each.
+    with F and through the per-stage sweep: torch.profiler over 10 eager
+    ``Stepper.step`` calls each (a CUDA graph keeps the route it was
+    captured with);
+22. the graph phases below, in sum.
+
+``fs.step`` runs ``Stepper.compiled_step``: from the second step of a run
+a CUDA graph of the step, so phases 3, 6, 10 and 17 time and count the
+graphed single stream, and the rollouts of phases 4, 8, 12, 13, 14, 19 and
+20 run their steps as graphs (each graph adds the launches it captured to
+the counts on every replay). The graph phases compare the two on one card:
+5g (dense), 9g (multifrontal, F), 12g (block, K3) and 19g (cavity, F), the
+single stream through ``fs.step`` with the eager ``Stepper.step`` put in its
+place for the eager turns; 14g (the cylinder's B = 256 open and closed
+loops, multifrontal through K2/P1 and block through K3) and 20g (the
+cavity's B = 64 open loop) through ``make_rollout_open_loop`` and
+``make_rollout_closed_loop`` against the eager loop of ``Stepper.step``.
+Each: one step (a rollout) both ways, bitwise equal (the dense path may
+instead be within 1e-6 relative: cuBLAS may take another algorithm under
+capture); steps/s in turns (eager, graph, graph, eager); the CUDA runtime
+calls that issued work from the host per step and the device's kernels and
+copies per step (torch.profiler); device time per step from CUDA events
+around calls queued behind a device sleep and the busy share (device /
+wall); the graph memory pool's bytes. 14s: kernel S, the batched step's
+sparse products (the mass in f32, the refinement residual's operator in
+f64) summed in a fixed order, against cuSPARSE's product at B = 256, and
+the launches of S on the batched paths (phases 13, 14, 20).
 
 The line before the last is a JSON object describing each kernel (K1 at
 batch 1, 256 and 64; K2 at batch 1, 256 and 64; K3 at batch 1 and at
-batch 256; P1; F at the cylinder's and the cavity's factor; P2, P3, P4):
+batch 256; P1; F at the cylinder's and the cavity's factor; P2, P3, P4;
+S at batch 256, f32, with its f64 numbers beside them):
 its launches on its main path (K1's and K2's batched rows: their launches
 on the paths of that width), its largest error
 against its plain version (a K3 row's is the one measured at that row's
@@ -145,6 +174,7 @@ sweep's device time for the same solve. The last line is
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -173,6 +203,8 @@ FIELD_ERR_TOL = 5e-4
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# f64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
+PEAK_F64_PER_S = 34e12
 
 
 def controls(i: int, u_on=(0.3, -0.2)) -> np.ndarray:
@@ -215,16 +247,19 @@ def device_ms(fns, reps: int = 20) -> float:
     for f in fns:
         f()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for f in fns:
-                f()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-             if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    if not us > 0:
-        raise AssertionError("the profiler recorded no device time")
-    return us / reps / 1e3
+    # the profiler now and then hands back no device rows for a window of
+    # tiny launches: up to three windows before giving up
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for f in fns:
+                    f()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if us > 0:
+            return us / reps / 1e3
+    raise AssertionError("the profiler recorded no device time in three windows")
 
 
 def queued_ms(fn, reps: int = 20, sleep_cycles: int = 100_000_000) -> tuple[float, float]:
@@ -952,8 +987,13 @@ def phase_probes(dev) -> dict:
         torch.cuda.synchronize()
         same = torch.equal(got, ref)
         r = {"max_abs_err": float((got - ref).abs().max())}
-        r["ms"], r["plain_ms"] = device_ms([kern]), device_ms([plain])
-        r["library_ms"] = device_ms([lib]) if lib is not None else None
+        # queued CUDA events: after the graph phases the profiler dropped
+        # whole windows of these microsecond launches. The plain versions of
+        # P3 and P4 read the offset on the host (a sync a call), so they
+        # cannot queue behind a sleep: theirs is the events' span of
+        # back-to-back calls
+        r["ms"], r["plain_ms"] = events_ms(kern, reps=50), cuda_time_ms(plain, reps=50)
+        r["library_ms"] = events_ms(lib, reps=50) if lib is not None else None
         r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
         lib_name = {"P2": "torch.gather", "P3": "torch.narrow_copy", "P4": "index_add_"}[name]
         lib_s = f", {lib_name} {r['library_ms']:.4f} ms" if lib is not None else ""
@@ -962,6 +1002,245 @@ def phase_probes(dev) -> dict:
             f"{r['bound_ms']:.3e} ms ({r['bound_by']})")
         if not same:
             raise AssertionError(f"{name} differs from its plain version by {r['max_abs_err']}")
+        out[name] = r
+    return out
+
+
+# ── The compiled entry points: CUDA graphs against the eager step ──────────
+
+CARRY_FIELDS = ("u_n", "u_nn", "mu_n", "mu_nn", "n_prev", "u_ctrl_prev")
+# the CUDA runtime calls that issue work from the host (kernel and
+# cooperative launches, graph launches, copies, sets)
+HOST_CALLS = ("LaunchKernel", "LaunchCooperativeKernel", "GraphLaunch", "Memcpy", "Memset")
+
+
+def launch_counts(run, steps: int) -> dict:
+    """torch.profiler over one ``run()`` of ``steps`` steps (after one
+    unprofiled run): device kernels and copies per step, and the CUDA
+    runtime calls per step that issued work from the host, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device, host = 0, {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            device += e.count
+        elif e.key.startswith("cu") and any(h in e.key for h in HOST_CALLS):
+            host[e.key] = host.get(e.key, 0) + e.count
+    return dict(device=device / steps, host=sum(host.values()) / steps,
+                calls={k: round(v / steps, 2) for k, v in sorted(host.items())})
+
+
+def in_turns(runs: dict, work: float) -> dict:
+    """Rates of the runs ``runs`` ({"eager": run, "graph": run}, each a
+    synchronised loop doing ``work`` steps) in turns on one card: eager,
+    graph, graph, eager. Returns {name: [rate, rate]}."""
+    rates = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        rates[name].append(work / (time.perf_counter() - t0))
+    return rates
+
+
+def same_bits(pairs, path: str) -> str:
+    """'bitwise' when every (got, want) pair is equal bit for bit; on the
+    dense path the largest relative difference otherwise (cuBLAS may take
+    another algorithm under capture); fails on any other path."""
+    worst = 0.0
+    for got, want in pairs:
+        if not torch.equal(got, want):
+            g, w = got.double(), want.double()
+            worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+    if worst == 0.0:
+        return "bitwise"
+    if path != "dense" or not worst <= 1e-6:
+        raise AssertionError(f"graph replay differs from the eager step on the {path} path: "
+                             f"{worst:.3e}")
+    return f"within {worst:.2e} relative"
+
+
+def graph_report(tag: str, what: str, rates: dict, counts: dict, dev_ms: dict, check: str,
+                 pool: int, batch: int) -> dict:
+    """Logs and returns one graph-against-eager comparison: rates (steps/s,
+    aggregate past one stream), wall and device ms per step, busy share
+    (device / wall), host launch calls per step, the replay's check and the
+    graph pool's bytes."""
+    wall = {k: batch * 1e3 / (sum(v) / len(v)) for k, v in rates.items()}  # ms per step
+    busy = {k: dev_ms[k] / wall[k] for k in wall}
+    unit = "steps/s" if batch == 1 else "aggregate steps/s"
+    log(f"{tag}: {what}, graph against eager, in turns (eager, graph, graph, eager): eager "
+        f"{rates['eager'][0]:.1f}, {rates['eager'][1]:.1f} {unit}, graph {rates['graph'][0]:.1f}, "
+        f"{rates['graph'][1]:.1f} {unit}; wall per step eager {wall['eager']:.4f} ms, graph "
+        f"{wall['graph']:.4f} ms; device per step (queued CUDA events) eager "
+        f"{dev_ms['eager']:.4f} ms, graph {dev_ms['graph']:.4f} ms; busy share eager "
+        f"{busy['eager']:.3f}, graph {busy['graph']:.3f}; host launch calls per step eager "
+        f"{counts['eager']['host']:.1f} {counts['eager']['calls']}, graph "
+        f"{counts['graph']['host']:.1f} {counts['graph']['calls']}; device kernels and copies per "
+        f"step eager {counts['eager']['device']:.1f}, graph {counts['graph']['device']:.1f}; "
+        f"replay against the eager step: {check}; graph pool {pool / 1e6:.1f} MB")
+    return dict(rates=rates, wall_ms=wall, dev_ms=dev_ms, busy=busy,
+                host=(counts["eager"]["host"], counts["graph"]["host"]), check=check, pool=pool)
+
+
+def phase_graph_single(fs, st, path: str, tag: str, reps: int = 100) -> dict:
+    """The single stream through ``fs.step``: Stepper.compiled_step (the
+    graph) against Stepper.step (eager). One step from the current carry
+    both ways, held bit for bit (the dense path: or within 1e-6); steps/s
+    in turns; host launch calls and device kernels per step
+    (torch.profiler); device time per step from queued CUDA events (the
+    graph's with its copies in and out), busy share = device / wall; the
+    graph pool's bytes."""
+    graphed = st.compiled_step()
+    zero = np.zeros(st.n_act)
+    zero_t = torch.zeros(st.n_act, dtype=st.dtype, device=st.device)
+    c0 = fs._carry
+    ce, oe = st.step(c0, zero_t)
+    cg, og = graphed(c0, zero_t)
+    check = same_bits([(og.y, oe.y), (og.dE, oe.dE), (og.x, oe.x)]
+                      + [(getattr(cg, f), getattr(ce, f)) for f in CARRY_FIELDS], path)
+
+    def loop(step, n):
+        def run():
+            fs._step_compiled = step
+            for _ in range(n):
+                fs.step(zero)
+        return run
+
+    rates = in_turns({"eager": loop(st.step, reps), "graph": loop(graphed, reps)}, reps)
+    counts = {"eager": launch_counts(loop(st.step, 10), 10),
+              "graph": launch_counts(loop(graphed, 10), 10)}
+    fs._step_compiled = graphed
+    c = fs._carry
+    # one eager step (hundreds of launches on the block path) fills the
+    # launch queue behind the sleep; the graph's calls are a few launches
+    dev_ms = {"eager": events_ms(lambda: st.step(c, zero_t), reps=1),
+              "graph": events_ms(lambda: graphed(c, zero_t), reps=10)}
+    return graph_report(tag, f"{path}, single stream, fs.step", rates, counts, dev_ms, check,
+                        st.graph_pool_bytes(), 1)
+
+
+def phase_graph_rollout(st, carry, path: str, tag: str, k_mats=None, y0=None) -> dict:
+    """A batched rollout of BATCH_STEPS - 1 steps from ``carry`` (past its
+    first step): make_rollout_open_loop (``k_mats`` None, seeded controls)
+    or make_rollout_closed_loop (controllers ``k_mats`` from ``y0``)
+    against the eager loop of Stepper.step (and the controller's products):
+    outputs and final carry held bit for bit; aggregate steps/s in turns;
+    host launch calls and device kernels per step; device time per step
+    from queued CUDA events around a whole rollout, busy share; the graph
+    pool's bytes."""
+    steps = BATCH_STEPS - 1
+    batch = carry.u_n.shape[0]
+    dev = st.device
+    if k_mats is None:
+        gen = torch.Generator(device=dev).manual_seed(9)
+        u_seq = 0.1 * torch.randn((steps, batch, st.n_act), generator=gen, device=dev,
+                                  dtype=st.dtype)
+        roll = st.make_rollout_open_loop()
+
+        def graph_run():
+            c, o = roll(carry, u_seq)
+            return c, [o.y, o.dE]
+
+        def eager_run():
+            c, ys, des = carry, [], []
+            for u in u_seq:
+                c, o = st.step(c, u)
+                ys.append(o.y)
+                des.append(o.dE)
+            return c, [torch.stack(ys), torch.stack(des)]
+    else:
+        mats = [torch.as_tensor(m, dtype=st.dtype, device=dev) for m in k_mats]
+        y0 = torch.as_tensor(y0, dtype=st.dtype, device=dev)
+        roll = st.make_rollout_closed_loop(steps)
+
+        def graph_run():
+            c, (ys, des, us, _) = roll(carry, mats, y0)
+            return c, [ys, des, us]
+
+        def eager_run():
+            ad, bd, cd, dd = mats
+            c, y, xk = carry, y0, torch.zeros(ad.shape[:-1], dtype=st.dtype, device=dev)
+            ys, des, us = [], [], []
+
+            def mv(a, v):
+                return torch.einsum("...ij,...j->...i", a, v)
+
+            for _ in range(steps):
+                fb = -y
+                u = mv(cd, xk) + mv(dd, fb)
+                xk = mv(ad, xk) + mv(bd, fb)
+                c, o = st.step(c, u)
+                y = o.y
+                ys.append(y)
+                des.append(o.dE)
+                us.append(u)
+            return c, [torch.stack(ys), torch.stack(des), torch.stack(us)]
+
+    cg, og = graph_run()
+    ce, oe = eager_run()
+    check = same_bits(list(zip(og, oe)) + [(getattr(cg, f), getattr(ce, f))
+                                           for f in CARRY_FIELDS], path)
+    del cg, og, ce, oe
+    rates = in_turns({"eager": eager_run, "graph": graph_run}, steps * batch)
+    counts = {"eager": launch_counts(eager_run, steps), "graph": launch_counts(graph_run, steps)}
+    # the eager rollout's launches would overflow the launch queue behind
+    # the sleep: its device time is one eager step's (the controller's
+    # products aside)
+    u0 = torch.zeros((batch, st.n_act), dtype=st.dtype, device=dev)
+    dev_ms = {"eager": events_ms(lambda: st.step(carry, u0), reps=2),
+              "graph": events_ms(graph_run, reps=1) / steps}
+    kind = "open" if k_mats is None else "closed"
+    return graph_report(tag, f"{path}, B={batch} {kind} loop, {steps} steps", rates, counts,
+                        dev_ms, check, st.graph_pool_bytes(), batch)
+
+
+def phase_spmm(st, tag: str) -> dict:
+    """Kernel S against its plain version (cuSPARSE's column-major product,
+    the batched step's product before S) on the cylinder's mass (f32) and
+    BDF2 refinement operator (f64) at B = BATCH: error, two calls bitwise
+    equal, one counted launch per call; device times (queued events) of S
+    (with its two layout copies), plain and the library's row-major product
+    ``a @ x.T.contiguous()`` beside the bound (the f64 operations at the
+    data sheet's 34 TFLOP/s)."""
+    from flowcontrol_tpu_torch.ops.spmm import csr_matmul, csr_matmul_plain
+
+    out = {}
+    for name, a in (("f32", st._dev["m"]), ("f64", st._dev["a_refine"][st._order_idx[2]])):
+        n = a.shape[1]
+        x = torch.randn((BATCH, n), generator=torch.Generator(device=st.device).manual_seed(3),
+                        device=st.device, dtype=torch.float32).to(a.dtype)
+        before = csr_matmul.launches
+        got, again = csr_matmul(a, x), csr_matmul(a, x)
+        ref = csr_matmul_plain(a, x)
+        torch.cuda.synchronize()
+        rel, abs_err = rel_err(got, ref)
+        same = torch.equal(got, again)
+        tol = MF_TOL if a.dtype == torch.float32 else 1e-12
+        if not (same and csr_matmul.launches == before + 2 and rel <= tol):
+            raise AssertionError(f"{tag}: S {name}: error {rel:.3e}, repeatable {same}")
+        nnz, s = a.values().numel(), a.values().element_size()
+        nbytes = nnz * (s + 8) + (a.shape[0] + 1) * 8 + 2 * s * BATCH * n
+        flops = 2.0 * nnz * BATCH
+        t_ops = flops / (PEAK_F32_PER_S if s == 4 else PEAK_F64_PER_S)
+        bnd = max(nbytes / PEAK_BYTES_PER_S, t_ops) * 1e3
+        r = dict(max_abs_err=abs_err, ms=events_ms(lambda: csr_matmul(a, x), reps=10),
+                 plain_ms=events_ms(lambda: csr_matmul_plain(a, x), reps=10),
+                 library_ms=events_ms(lambda: a @ x.T.contiguous(), reps=10), bound_ms=bnd,
+                 bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >= t_ops else "operations")
+        log(f"{tag}: S {name} B={BATCH} n={n} nnz={nnz}: max|k-p|/max|p| = {rel:.3e} (tol "
+            f"{tol:g}), max|k-p| = {abs_err:.3e}, two calls bitwise equal; device time per call "
+            f"(queued events): kernel {r['ms']:.4f} ms (with its two layout copies), plain "
+            f"(cuSPARSE, column-major) {r['plain_ms']:.4f} ms, library (cuSPARSE, row-major) "
+            f"{r['library_ms']:.4f} ms, bound {bnd:.4f} ms ({r['bound_by']}, "
+            f"{nbytes / 1e9:.4f} GB); plain's repeatability: "
+            f"{torch.equal(ref, csr_matmul_plain(a, x))}")
         out[name] = r
     return out
 
@@ -1001,6 +1280,7 @@ def main() -> int:
     )
     from flowcontrol_tpu_torch.ops.mf_matvec import MF_KERNELS, gather_sum_sub, stack_matvec
     from flowcontrol_tpu_torch.ops.nl import NL_KERNEL, nonlinear_convection
+    from flowcontrol_tpu_torch.ops.spmm import SPMM_KERNEL, csr_matmul
     from flowcontrol_tpu_torch.ops.trisolve import (
         TRISOLVE_KERNEL,
         block_lu_solve_fused,
@@ -1019,10 +1299,10 @@ def main() -> int:
     log(f"phase 1: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {kind}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    build_all([NL_KERNEL, MF_KERNELS, TRISOLVE_KERNEL, MF_FUSED_KERNEL])
+    build_all([NL_KERNEL, MF_KERNELS, TRISOLVE_KERNEL, MF_FUSED_KERNEL, SPMM_KERNEL])
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s wall (parallel nvcc)")
     for name, lib in (("K1", NL_KERNEL), ("K2+P1", MF_KERNELS), ("K3", TRISOLVE_KERNEL),
-                      ("F+P2+P3+P4", MF_FUSED_KERNEL)):
+                      ("F+P2+P3+P4", MF_FUSED_KERNEL), ("S", SPMM_KERNEL)):
         log(f"phase 1: {name} built from {lib.source.name} in {lib.build_seconds:.2f} s "
             f"-> {lib.library_path().name}")
         for line in lib.build_log.splitlines():
@@ -1059,7 +1339,7 @@ def main() -> int:
 
     fs.initialize_time_stepping()
     counters = (nonlinear_convection, stack_matvec, gather_sum_sub, block_lu_solve_fused,
-                multifrontal_solve_fused)
+                multifrontal_solve_fused, csr_matmul)
     dense = run_path(fs, counters)
     st = dense["st"]
     k1_launches = dense["launches"][0]
@@ -1072,20 +1352,22 @@ def main() -> int:
         f"dE[-1] = {dense['de'][-1]:.6e}")
     log(f"phase 3: launches K1 {k1_launches} (expected {NUM_STEPS + 1}), K2 "
         f"{dense['launches'][1]}, P1 {dense['launches'][2]}, K3 {dense['launches'][3]}, F "
-        f"{dense['launches'][4]} (expected 0)")
-    if dense["launches"] != [NUM_STEPS + 1, 0, 0, 0, 0]:
+        f"{dense['launches'][4]}, S {dense['launches'][5]} (expected 0)")
+    if dense["launches"] != [NUM_STEPS + 1, 0, 0, 0, 0, 0]:
         raise AssertionError(f"dense path launches {dense['launches']}, "
-                             f"expected {[NUM_STEPS + 1, 0, 0, 0, 0]}")
+                             f"expected {[NUM_STEPS + 1, 0, 0, 0, 0, 0]}")
 
     # ── phase 4: accuracy against host f64 ───────────────────────────────────
     host = HostF64Loop(fs)
     accuracy(host, st, dense["carry10"], "phase 4")
 
     library_ms = phase_breakdown(fs, st, dev)
+    graphs = {"cylinder dense B=1": phase_graph_single(fs, st, "dense", "phase 5g")}
 
     # ── phase 6: the multifrontal main path ──────────────────────────────────
     del st, dense["st"]
-    fs._stepper = fs._carry = None  # the dense factor leaves the card
+    fs._stepper = fs._carry = fs._step_compiled = None  # the dense factor leaves the card
+    gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     fs2 = CylinderFlowSolver.make_default(
@@ -1101,7 +1383,7 @@ def main() -> int:
     mf = st2._solvers[oi2]
     k2_per, p1_per = mf.launches_per_solve()
     solves = (1 + st2.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
-    expected = [NUM_STEPS + 1, 0, 0, 0, solves]
+    expected = [NUM_STEPS + 1, 0, 0, 0, solves, 0]
     t = mf.timings
     log(f"phase 6: solve kinds {st2._solver_kinds} (expected ['borrowed', 'multifrontal']), "
         f"dtype {st2.dtype}, refinement sweeps {st2._refine}")
@@ -1118,7 +1400,7 @@ def main() -> int:
         f"{NUM_STEPS - CTRL_STEPS} (dense path {dense['sps']:.2f}; {card}); "
         f"y[-1] = {mfp['ys'][-1].tolist()} (dense path {dense['ys'][-1].tolist()}), "
         f"dE[-1] = {mfp['de'][-1]:.6e}")
-    log(f"phase 6: launches K1/K2/P1/K3/F {mfp['launches']} (expected {expected}: {solves} "
+    log(f"phase 6: launches K1/K2/P1/K3/F/S {mfp['launches']} (expected {expected}: {solves} "
         f"solves, each one launch of F; the per-stage sweep would make {k2_per} K2 and "
         f"{p1_per} P1 launches per solve)")
     if st2._solver_kinds != ["borrowed", "multifrontal"] or not mf.takes_fused(1):
@@ -1141,6 +1423,7 @@ def main() -> int:
         f"Stepper.step span {cuda_time_ms(lambda: st2.step(fs2._carry, np.zeros(2)), reps=20):.3f}"
         " (both include dispatch gaps)")
     profile_steps(fs2, "phase 9")
+    graphs["cylinder multifrontal B=1"] = phase_graph_single(fs2, st2, "multifrontal", "phase 9g")
 
     # ── phase 10: the block path, single stream ──────────────────────────────
     t0 = time.perf_counter()
@@ -1157,7 +1440,7 @@ def main() -> int:
     k3_solves = (1 + st3.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + refine3)
     k3_per = launches_per_solve(blu.nb, 1)  # the single stream: one right-hand side
     k3_panel = launches_per_solve(blu.nb, BATCH)  # the batched paths: one persistent launch
-    expected = [NUM_STEPS + 1, 0, 0, k3_solves * k3_per, 0]
+    expected = [NUM_STEPS + 1, 0, 0, k3_solves * k3_per, 0, 0]
     y_rel = float(np.abs(blk["ys"][-1] - dense["ys"][-1]).max() / np.abs(dense["ys"][-1]).max())
     log(f"phase 10: solve kinds {st3._solver_kinds} (expected ['borrowed', 'block']), dtype "
         f"{st3.dtype}, refinement sweeps {st3._refine}; BlockLU n_pad {blu.n_pad}, bs {blu.bs}, "
@@ -1170,7 +1453,7 @@ def main() -> int:
         f"{NUM_STEPS - CTRL_STEPS} (dense path {dense['sps']:.2f}, multifrontal {mfp['sps']:.2f}; "
         f"{card}); y[-1] = {blk['ys'][-1].tolist()}, relative to the dense path's {y_rel:.3e} "
         f"(tol 1e-3), dE[-1] = {blk['de'][-1]:.6e}")
-    log(f"phase 10: launches K1/K2/P1/K3/F {blk['launches']} (expected {expected}: "
+    log(f"phase 10: launches K1/K2/P1/K3/F/S {blk['launches']} (expected {expected}: "
         f"{k3_solves} solves of {k3_per} K3 launches, all made by one call of the C entry point; "
         f"a panel of right-hand sides takes {k3_panel} launch per solve)")
     if st3._solver_kinds != ["borrowed", "block"] or not isinstance(blu, BlockLU):
@@ -1185,6 +1468,7 @@ def main() -> int:
 
     # ── phase 12: accuracy against host f64 ──────────────────────────────────
     accuracy(host, st3, blk["carry10"], "phase 12")
+    graphs["cylinder block B=1"] = phase_graph_single(fs3, st3, "block", "phase 12g")
 
     # ── phase 13: batched open loop, both paths ──────────────────────────────
     up = fs3._carry.u_n.double().cpu().numpy()  # the block path's state after its steps
@@ -1192,11 +1476,15 @@ def main() -> int:
     open_blk = phase_batched_open(st3, up, counters, "phase 13 (block)")
     open_mf = phase_batched_open(st2, up, counters, "phase 13 (multifrontal)")
     solves_mf = (1 + st2.BORROW_ITERS) + (BATCH_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
-    expected_open = {"block": [BATCH_STEPS + 1, 0, 0, solves_b * k3_panel, 0],
+    # S: the mass of init_carry, the borrowed step's residuals and mass, then
+    # per step the mass and one residual per refinement sweep
+    s_blk = 1 + (st3.BORROW_ITERS + 1) + (BATCH_STEPS - 1) * (1 + refine3)
+    s_mf = 1 + (st2.BORROW_ITERS + 1) + (BATCH_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
+    expected_open = {"block": [BATCH_STEPS + 1, 0, 0, solves_b * k3_panel, 0, s_blk],
                      "multifrontal": [BATCH_STEPS + 1, solves_mf * k2_per, solves_mf * p1_per,
-                                      0, 0]}
+                                      0, 0, s_mf]}
     for name, r in (("block", open_blk), ("multifrontal", open_mf)):
-        log(f"phase 13 ({name}): launches K1/K2/P1/K3/F {r['launches']} "
+        log(f"phase 13 ({name}): launches K1/K2/P1/K3/F/S {r['launches']} "
             f"(expected {expected_open[name]})")
         if r["launches"] != expected_open[name]:
             raise AssertionError(f"batched open loop ({name}) launches {r['launches']}")
@@ -1208,16 +1496,26 @@ def main() -> int:
                                      "phase 14 (multifrontal)")
     per_step_mf = 1 + st2._refine.get(oi2, 0)
     expected_closed = {
-        "block": [BATCH_STEPS, 0, 0, BATCH_STEPS * (1 + refine3) * k3_panel, 0],
+        "block": [BATCH_STEPS, 0, 0, BATCH_STEPS * (1 + refine3) * k3_panel, 0,
+                  BATCH_STEPS * (1 + refine3)],
         "multifrontal": [BATCH_STEPS, BATCH_STEPS * per_step_mf * k2_per,
-                         BATCH_STEPS * per_step_mf * p1_per, 0, 0],
+                         BATCH_STEPS * per_step_mf * p1_per, 0, 0, BATCH_STEPS * per_step_mf],
     }
     for name, r in (("block", closed_blk), ("multifrontal", closed_mf)):
-        log(f"phase 14 ({name}): launches K1/K2/P1/K3/F {r['launches']} "
+        log(f"phase 14 ({name}): launches K1/K2/P1/K3/F/S {r['launches']} "
             f"(expected {expected_closed[name]})")
         if r["launches"] != expected_closed[name]:
             raise AssertionError(f"batched closed loop ({name}) launches {r['launches']}")
     k3_batched_launches = open_blk["launches"][3] + closed_blk["launches"][3]
+    s_launches = sum(r["launches"][5] for r in (open_blk, open_mf, closed_blk, closed_mf))
+    spmm = phase_spmm(st2, "phase 14s")
+    # the batched rollouts as graphs against eager, from the open loops' carries
+    k_mats = controller_population(st2, fs2.params_time.dt)[2]
+    for name, stp, r in (("multifrontal", st2, open_mf), ("block", st3, open_blk)):
+        graphs[f"cylinder {name} B={BATCH} open"] = phase_graph_rollout(
+            stp, r["carry"], name, "phase 14g")
+        graphs[f"cylinder {name} B={BATCH} closed"] = phase_graph_rollout(
+            stp, r["carry"], name, "phase 14g", k_mats=k_mats, y0=r["y_last"])
     k1_batched_launches = sum(r["launches"][0] for r in (open_blk, open_mf, closed_blk, closed_mf))
 
     # where the multifrontal step's time goes at B = BATCH (the per-stage sweep)
@@ -1242,7 +1540,8 @@ def main() -> int:
     f_cyl = phase_fused(mf, "phase 16")
     probes = phase_probes(dev)
     del fs3, st3, blu, carry_b, open_blk, blk["st"]  # the block factor leaves the card
-    fs._stepper = fs._carry = None
+    fs._stepper = fs._carry = fs._step_compiled = None
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ── phase 17: the open cavity, single stream ─────────────────────────────
@@ -1257,7 +1556,7 @@ def main() -> int:
     mfc = stc._solvers[oic]
     refine_c = stc._refine.get(oic, 0)
     solves_c = (1 + stc.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + refine_c)
-    expected = [NUM_STEPS + 1, 0, 0, 0, solves_c]
+    expected = [NUM_STEPS + 1, 0, 0, 0, solves_c, 0]
     t = mfc.timings
     log(f"phase 17: cavity Re={CAV_RE}: mesh {fc.mesh.num_cells} cells, {fc.space.n_dofs} dofs "
         f"({fc.space.n_vel_dofs} velocity + {fc.space.n_pressure_dofs} pressure); mesh+spaces "
@@ -1277,7 +1576,7 @@ def main() -> int:
     log(f"phase 17: {NUM_STEPS} steps (u = [{CAV_U}] for {CTRL_STEPS}, then 0), single-stream "
         f"{cav['sps']:.2f} steps/s over the last {NUM_STEPS - CTRL_STEPS} ({card}); y[-1] = "
         f"{cav['ys'][-1].tolist()}, dE[-1] = {cav['de'][-1]:.6e}")
-    log(f"phase 17: launches K1/K2/P1/K3/F {cav['launches']} (expected {expected}: {solves_c} "
+    log(f"phase 17: launches K1/K2/P1/K3/F/S {cav['launches']} (expected {expected}: {solves_c} "
         f"solves, each one launch of F)")
     if (stc._solver_kinds != ["borrowed", "multifrontal"] or fc.params_solver.stepper_options
             or not mfc.takes_fused(1)):
@@ -1293,14 +1592,16 @@ def main() -> int:
     accuracy(HostF64Loop(fc), stc, cav["carry10"], "phase 19")
     log(f"phase 19: refinement sweeps per solve {refine_c} (the factor's recommended_refine: "
         f"per-solve error {mfc.solve_err:.3e} against the {mfc.ZERO_SWEEP_ERR:g} ceiling)")
+    graphs["cavity multifrontal B=1"] = phase_graph_single(fc, stc, "multifrontal", "phase 19g")
 
     # ── phase 20: the cavity, batched open loop (the per-stage sweep) ─────────
     up_c = fc._carry.u_n.double().cpu().numpy()
     open_c = phase_batched_open(stc, up_c, counters, "phase 20", batch=CAV_BATCH, u_dir=(1.0,))
     k2c, p1c = mfc.launches_per_solve()
     solves_bc = (1 + stc.BORROW_ITERS) + (BATCH_STEPS - 1) * (1 + refine_c)
-    expected = [BATCH_STEPS + 1, solves_bc * k2c, solves_bc * p1c, 0, 0]
-    log(f"phase 20: launches K1/K2/P1/K3/F {open_c['launches']} (expected {expected}: "
+    s_c = 1 + (stc.BORROW_ITERS + 1) + (BATCH_STEPS - 1) * (1 + refine_c)
+    expected = [BATCH_STEPS + 1, solves_bc * k2c, solves_bc * p1c, 0, 0, s_c]
+    log(f"phase 20: launches K1/K2/P1/K3/F/S {open_c['launches']} (expected {expected}: "
         f"{solves_bc} solves x {k2c} K2 and {p1c} P1)")
     if open_c["launches"] != expected or mfc.takes_fused(CAV_BATCH):
         raise AssertionError(f"cavity batched launches {open_c['launches']}, expected {expected}")
@@ -1311,18 +1612,36 @@ def main() -> int:
     profile_steps(fc, f"phase 20 (B={CAV_BATCH})", steps=3, step=lambda: stc.step(carry_c, u_c),
                   what="Stepper.step")
     del carry_c
+    graphs[f"cavity multifrontal B={CAV_BATCH} open"] = phase_graph_rollout(
+        stc, open_c["carry"], "multifrontal", "phase 20g")
+    s_launches += open_c["launches"][5]
     k2_wide[CAV_BATCH] = phase_k2_wide(mfc, CAV_BATCH, "phase 20")
     k1_cav = phase_kernel(fc.space, fc.geom, dev, widths=(CAV_BATCH,), tag="phase 20")
 
     # ── phase 21: where the cavity step goes; the cylinder's with F and without
-    profile_steps(fc, "phase 21 (cavity, F)")
-    profile_steps(fs2, "phase 21 (cylinder, F)")
+    # (the eager Stepper.step: a graph keeps the route it was captured with)
+    def eager_step(f):
+        zero = torch.zeros(f.stepper.n_act, dtype=f.stepper.dtype, device=dev)
+        return lambda: f.stepper.step(f._carry, zero)
+
+    for f, name in ((fc, "cavity"), (fs2, "cylinder")):
+        profile_steps(f, f"phase 21 ({name}, F)", step=eager_step(f), what="Stepper.step")
     fused_max_rows, mf_module.FUSED_MAX_ROWS = mf_module.FUSED_MAX_ROWS, 0
     try:  # the same steps through the per-stage sweep
-        profile_steps(fc, "phase 21 (cavity, per-stage sweep)")
-        profile_steps(fs2, "phase 21 (cylinder, per-stage sweep)")
+        for f, name in ((fc, "cavity"), (fs2, "cylinder")):
+            profile_steps(f, f"phase 21 ({name}, per-stage sweep)", step=eager_step(f),
+                          what="Stepper.step")
     finally:
         mf_module.FUSED_MAX_ROWS = fused_max_rows
+
+    # ── phase 22: the compiled entry points' graphs against eager, in sum ──
+    for name, g in graphs.items():
+        log(f"phase 22: {name}: eager {np.mean(g['rates']['eager']):.1f}, graph "
+            f"{np.mean(g['rates']['graph']):.1f} steps/s (graph / eager "
+            f"{np.mean(g['rates']['graph']) / np.mean(g['rates']['eager']):.3f}); busy share "
+            f"eager {g['busy']['eager']:.3f}, graph {g['busy']['graph']:.3f}; host launch calls "
+            f"per step {g['host'][0]:.1f} -> {g['host'][1]:.1f}; replay {g['check']}; pool "
+            f"{g['pool'] / 1e6:.1f} MB ({card})")
 
     def row(name, source, replaces, launches, r, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1377,6 +1696,14 @@ def main() -> int:
             probes["P3"], probes["P3"]["library_ms"], launched_inside="F"),
         row("P4 dynamic_offset_accum_store", src + "mf_fused.cu", probe_src + ":89",
             f_launches, probes["P4"], probes["P4"]["library_ms"], launched_inside="F"),
+        # S replaces no Pallas kernel: it stands for the JAX stepper's XLA
+        # operator applies; its row is the mass at B = BATCH (f32), with the
+        # f64 refinement operator's numbers beside it
+        row(f"S csr_matmul B={BATCH} mass f32", src + "csr_spmm.cu",
+            "flowcontrol_tpu/core/stepper.py:885", s_launches, spmm["f32"],
+            spmm["f32"]["library_ms"],
+            **{f"f64_{k}": spmm["f64"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                     "library_ms", "bound_ms", "bound_by")}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

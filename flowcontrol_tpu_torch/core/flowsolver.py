@@ -488,6 +488,9 @@ class FlowSolver(ABC):
         up_n = np.concatenate([self.fields.u_n.reshape(-1), self.fields.p_n])
         up_nn = np.concatenate([self.fields.u_nn.reshape(-1), self.fields.p_n])
         self._carry = self._stepper.init_carry(up_n, up_nn)
+        # the JAX package's jitted step (flowsolver.py:634): on CUDA a CUDA
+        # graph of the steady-state step, on the CPU the eager step
+        self._step_compiled = self._stepper.compiled_step()
 
     @property
     def stepper(self) -> Stepper:
@@ -507,7 +510,7 @@ class FlowSolver(ABC):
         u_ctrl = np.atleast_1d(np.asarray(u_ctrl, dtype=float))
         self.set_actuators_u_ctrl(u_ctrl)
 
-        self._carry, out = self._stepper.step(self._carry, u_ctrl)
+        self._carry, out = self._step_compiled(self._carry, u_ctrl)
         if bool(out.diverged):
             logger.critical("Solver diverged (Inf detected)")
             if not self.params_solver.throw_error:

@@ -17,10 +17,15 @@ code path steps a single stream (n,) and a batch (B, n) of plant copies.
 
 All device state (LU factors, CSR operators, lifting vectors, sensor rows,
 the N(u) tables) lives in one plain dict of tensors, ``self._dev``, on
-``self.device``. A Python loop takes the place of ``lax.scan``; the step
-counter is a host integer, so the BDF1→BDF2 ramp is a host branch over the
-two coefficient sets rather than the reference's where-selected arrays —
-the same arithmetic.
+``self.device``. ``step`` runs eagerly. The counterparts of the JAX
+package's compiled entry points (``compiled_step``,
+``make_rollout_open_loop``, ``make_rollout_closed_loop``,
+``closed_loop_fn``) run the steady-state step, and the rollouts' bodies, as
+CUDA graphs (``core/graphs.py``) over a static carry; on the CPU the same
+bodies run eagerly. The step counter is a host integer, so the BDF1→BDF2
+ramp is a host branch over the two coefficient sets rather than the
+reference's where-selected arrays — the same arithmetic — and the first
+step of a run stays eager.
 
 Not transcribed, because they exist for the TPU: the banded mass apply
 (``ops/banded.py``; gathers are slow on a TPU, a CSR SpMV is not slow on a
@@ -47,9 +52,11 @@ import numpy as np
 import torch
 
 from flowcontrol_tpu_torch.config import device_memory_budget_bytes, require_device
+from flowcontrol_tpu_torch.core.graphs import Program
 from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
 from flowcontrol_tpu_torch.fem.bc import BCSet
 from flowcontrol_tpu_torch.ops.nl import NLTables, nonlinear_convection
+from flowcontrol_tpu_torch.ops.spmm import csr_matmul
 from flowcontrol_tpu_torch.parallel.dofsharding import mixed_dof_coordinates
 from flowcontrol_tpu_torch.solvers.block_lu import BlockLU
 from flowcontrol_tpu_torch.solvers.direct import DeviceDenseLU, HostSparseLU
@@ -120,11 +127,12 @@ def csr_to_device(a_csr, device, dtype) -> torch.Tensor:
 
 def sparse_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``a @ x`` over the last dimension of x (..., n) for a sparse CSR a:
-    an SpMV for one vector, a sparse-dense product on (n, B) for a batch."""
+    an SpMV for one vector, kernel S (``ops/spmm.py``, summed in a fixed
+    order) for a batch."""
     if x.dim() == 1:
         return torch.mv(a, x)
     flat = x.reshape(-1, x.shape[-1])
-    return (a @ flat.T).T.contiguous().reshape(x.shape[:-1] + (a.shape[0],))
+    return csr_matmul(a, flat).reshape(x.shape[:-1] + (a.shape[0],))
 
 
 def dense_lu_max_dofs_device(device) -> int:
@@ -294,6 +302,12 @@ class Stepper:
         d["bc_profiles"] = tensor(profiles)
         self._dev = d
         self._coeffs = {o: forms.rhs_coefficients(o) for o in orders}
+        #: the compiled entry points' programs (core/graphs.py) by key, their
+        #: static carries by batch shape, and on CUDA their side stream and
+        #: graph memory pool
+        self._programs: dict = {}
+        self._statics: dict = {}
+        self._graph_stream = self._graph_pool = None
 
     # ── Step math ────────────────────────────────────────────────────────────
 
@@ -364,17 +378,19 @@ class Stepper:
             x = x64.to(self.dtype)
         return x
 
-    def _order_of(self, carry: StepCarry):
+    def _order_of(self, it: int):
         if self.scheme == "cn":
             return "cn"
-        return 1 if carry.it == 0 else 2
+        return 1 if it == 0 else 2
 
-    def step(self, carry: StepCarry, u_ctrl) -> tuple[StepCarry, StepOutput]:
-        """One time step: (carry, u_ctrl (..., n_act)) -> (carry', StepOutput)."""
+    def _control(self, u_ctrl) -> torch.Tensor:
         u_ctrl = self._tensor(u_ctrl)
         if u_ctrl.shape[-1:] != (self.n_act,):
             raise ValueError(f"u_ctrl has shape {tuple(u_ctrl.shape)}, needs (..., {self.n_act})")
-        order = self._order_of(carry)
+        return u_ctrl
+
+    def _step_values(self, order, carry: StepCarry, u_ctrl: torch.Tensor):
+        """The step's new values: (x, M x, N(u_n), y, dE, diverged)."""
         nl_n = self._nl(carry.u_n)
         rhs = self._rhs(order, carry, u_ctrl, nl_n)
         x = self._solve(order, rhs)
@@ -384,11 +400,81 @@ class Stepper:
         mx = self._mass(x)
         de = 0.5 * torch.einsum("...i,...i->...", x, mx)
         diverged = ~torch.isfinite(x).all(dim=-1)
+        return x, mx, nl_n, y, de, diverged
+
+    def step(self, carry: StepCarry, u_ctrl) -> tuple[StepCarry, StepOutput]:
+        """One time step, run eagerly: (carry, u_ctrl (..., n_act)) ->
+        (carry', StepOutput). :meth:`compiled_step` gives the same step as
+        a CUDA graph."""
+        u_ctrl = self._control(u_ctrl)
+        x, mx, nl_n, y, de, diverged = self._step_values(self._order_of(carry.it), carry, u_ctrl)
         new_carry = StepCarry(
             u_n=x, u_nn=carry.u_n, mu_n=mx, mu_nn=carry.mu_n, n_prev=nl_n,
             u_ctrl_prev=u_ctrl, it=carry.it + 1,
         )
         return new_carry, StepOutput(y=y, dE=de, diverged=diverged, x=x)
+
+    def _advance(self, order, s: StepCarry, u_ctrl: torch.Tensor):
+        """One step on the static carry ``s``, in place: the body of every
+        captured program. Returns (y, dE, diverged, x)."""
+        x, mx, nl_n, y, de, diverged = self._step_values(order, s, u_ctrl)
+        s.u_nn.copy_(s.u_n)
+        s.mu_nn.copy_(s.mu_n)
+        s.u_n.copy_(x)
+        s.mu_n.copy_(mx)
+        s.n_prev.copy_(nl_n)
+        s.u_ctrl_prev.copy_(u_ctrl)
+        return y, de, diverged, x
+
+    # ── Programs: the static carry and the captured bodies ──────────────────
+
+    def _static_carry(self, carry: StepCarry) -> StepCarry:
+        """The static carry for ``carry``'s batch shape (shared by that
+        shape's programs), holding ``carry``'s values: copied in unless it
+        already holds them (it does after a program returned ``carry``)."""
+        batch = tuple(carry.u_n.shape[:-1])
+        entry = self._statics.get(batch)
+        if entry is None:
+            def buf(k):
+                return torch.empty(batch + (k,), dtype=self.dtype, device=self.device)
+
+            n = self.space.n_dofs
+            entry = self._statics[batch] = {
+                "carry": StepCarry(*(buf(n) for _ in range(5)), buf(self.n_act), it=-1),
+                "holds": None,
+            }
+        s = entry["carry"]
+        if entry["holds"] is not carry:
+            for k in _CARRY_TENSORS:
+                getattr(s, k).copy_(getattr(carry, k))
+        return s
+
+    def _returned(self, s: StepCarry, it: int, **given) -> StepCarry:
+        """The carry a program hands back: copies of the static carry's
+        values (a later run overwrites it), except the fields ``given``,
+        remembered as the one the static carry holds."""
+        fields = {k: given[k] if k in given else getattr(s, k).clone() for k in _CARRY_TENSORS}
+        carry = StepCarry(**fields, it=it)
+        self._statics[tuple(s.u_n.shape[:-1])]["holds"] = carry
+        return carry
+
+    def _program(self, key, make_body) -> Program:
+        """The program cached under ``key``, made from ``make_body()`` ->
+        (body, its fixed tensors) on first use."""
+        prog = self._programs.get(key)
+        if prog is None:
+            if self.device.type == "cuda" and self._graph_stream is None:
+                self._graph_stream = torch.cuda.Stream(self.device)
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            body, fixed = make_body()
+            prog = Program(body, self.device, self._graph_stream, self._graph_pool, fixed)
+            self._programs[key] = prog
+        return prog
+
+    def graph_pool_bytes(self) -> int:
+        """Bytes the captures of this Stepper's graphs added to their
+        memory pool (0 on the CPU)."""
+        return sum(p.pool_bytes for p in self._programs.values())
 
     # ── Public API ───────────────────────────────────────────────────────────
 
@@ -410,25 +496,123 @@ class Stepper:
             it=0,
         )
 
-    def rollout_open_loop(self, carry: StepCarry, u_seq):
-        """Step through a prescribed control sequence (T, ..., n_act).
-        Returns (carry, StepOutput) with y, dE and diverged stacked over T;
-        x is None: a rollout never stacks the per-step states (T·B·n values
-        beside the resident factor), the final state is in the carry."""
-        u_seq = self._tensor(u_seq)
-        ys, des, divs = [], [], []
-        for u in u_seq:
-            carry, out = self.step(carry, u)
-            ys.append(out.y)
-            des.append(out.dE)
-            divs.append(out.diverged)
-        return carry, StepOutput(
-            y=torch.stack(ys), dE=torch.stack(des), diverged=torch.stack(divs), x=None
-        )
+    def compiled_step(self):
+        """The counterpart of the JAX package's jitted step: a callable
+        ``(carry, u_ctrl) -> (carry', StepOutput)`` with the contract of
+        :meth:`step`. On CUDA the steady-state order (BDF2, or CN) runs as
+        a CUDA graph, captured once per batch shape and control shape over
+        a static carry; the first step (``carry.it == 0``: BDF1 with its
+        own factor, or the borrowed BDF1 step) runs eagerly, once per run.
+        A call copies the carry in (skipped when it is the carry the
+        previous call returned, which the static carry still holds: the
+        caller treats returned carries as values and does not write into
+        them) and ``u_ctrl``, replays, and returns copies: a carry or
+        output the caller holds keeps its values. On the CPU it is
+        :meth:`step`."""
+        if self.device.type != "cuda":
+            return self.step
+        return self._graphed_step
+
+    def _graphed_step(self, carry: StepCarry, u_ctrl) -> tuple[StepCarry, StepOutput]:
+        u_ctrl = self._control(u_ctrl)
+        if carry.it == 0:
+            return self.step(carry, u_ctrl)
+        order = self._order_of(carry.it)
+        s = self._static_carry(carry)
+
+        def make():
+            u = torch.empty_like(u_ctrl)
+            return (lambda: self._advance(order, s, u)), {"u": u}
+
+        prog = self._program(("step", order, tuple(s.u_n.shape), tuple(u_ctrl.shape)), make)
+        prog.fixed["u"].copy_(u_ctrl)
+        y, de, diverged, _ = prog.run()
+        new = self._returned(s, carry.it + 1, u_nn=carry.u_n, mu_nn=carry.mu_n,
+                             u_ctrl_prev=u_ctrl)
+        return new, StepOutput(y=y.clone(), dE=de.clone(), diverged=diverged.clone(), x=new.u_n)
+
+    def _roll(self, carry: StepCarry, kind, num_steps: int, inputs: dict, outputs: dict,
+              make_step):
+        """A rollout of ``num_steps`` steps of one program over the static
+        carry: the carry is copied in once and out once, each run writes
+        its step's outputs into slot ``t`` of the (num_steps, ...) tensors
+        named in ``outputs`` ({name: (shape, dtype)}; ``t`` lives on the
+        device and the body advances it). ``make_step(order, s, fixed)``
+        gives the step's body at ``order`` over the static carry ``s`` and
+        the program's fixed tensors (the inputs, the outputs and ``t``, by
+        name). ``kind`` and the shapes key the program. The first step of a
+        run (``it == 0``) runs that body eagerly at its own order; the
+        steady order runs as the program. Returns (carry', copies of the
+        outputs)."""
+        s = self._static_carry(carry)
+        shapes = tuple(tuple(v.shape) for v in inputs.values()) + tuple(outputs.values())
+        order = self._order_of(max(carry.it, 1))
+
+        def make():
+            fixed = {k: torch.empty_like(v) for k, v in inputs.items()}
+            fixed.update({k: torch.empty(shape, dtype=dt, device=self.device)
+                          for k, (shape, dt) in outputs.items()})
+            fixed["t"] = torch.zeros(1, dtype=torch.int64, device=self.device)
+            return make_step(order, s, fixed), fixed
+
+        prog = self._program((kind, order, tuple(s.u_n.shape), shapes), make)
+        for k, v in inputs.items():
+            prog.fixed[k].copy_(v)
+        prog.fixed["t"].zero_()
+        first = min(num_steps, int(carry.it == 0))
+        if first:
+            make_step(self._order_of(0), s, prog.fixed)()
+        for _ in range(first, num_steps):
+            prog.run()
+        new = self._returned(s, carry.it + num_steps) if num_steps else carry
+        return new, {k: prog.fixed[k].clone() for k in outputs}
+
+    def make_rollout_open_loop(self, with_state: bool = False):
+        """The counterpart of the JAX package's jitted scan of the step: a
+        callable ``(carry, u_seq (T, ..., n_act)) -> (carry', StepOutput)``
+        with y, dE and diverged stacked over T, and x stacked too with
+        ``with_state`` (T·B·n values beside the resident factor), else
+        None: the final state is in the carry. On CUDA every step after
+        the first of a run (``it == 0``, eager) replays one CUDA graph,
+        captured once per batch shape and T; on the CPU the same body runs
+        eagerly."""
+
+        def roll(carry: StepCarry, u_seq):
+            return self._rollout_open(carry, self._tensor(u_seq), with_state)
+
+        return roll
+
+    def _rollout_open(self, carry: StepCarry, u_seq: torch.Tensor, with_state: bool):
+        steps, batch = u_seq.shape[0], tuple(carry.u_n.shape[:-1])
+        lead = (steps,) + batch
+        outputs = {"y": (lead + (self.ns,), self.dtype), "dE": (lead, self.dtype),
+                   "diverged": (lead, torch.bool)}
+        if with_state:
+            outputs["x"] = (lead + (self.space.n_dofs,), self.dtype)
+
+        def make_step(order, s, f):
+            def body():
+                t = f["t"]
+                y, de, diverged, x = self._advance(order, s, f["u"].index_select(0, t)[0])
+                for k, v in (("y", y), ("dE", de), ("diverged", diverged), ("x", x)):
+                    if k in f:
+                        f[k].index_copy_(0, t, v.unsqueeze(0))
+                t.add_(1)
+            return body
+
+        carry, outs = self._roll(carry, "open", steps, {"u": u_seq}, outputs, make_step)
+        return carry, StepOutput(y=outs["y"], dE=outs["dE"], diverged=outs["diverged"],
+                                 x=outs.get("x"))
+
+    def rollout_open_loop(self, carry: StepCarry, u_seq, with_state: bool = False):
+        """Step through a prescribed control sequence (T, ..., n_act):
+        :meth:`make_rollout_open_loop` ``(with_state)`` applied."""
+        return self.make_rollout_open_loop(with_state)(carry, u_seq)
 
     def rollout_closed_loop(self, carry: StepCarry, k_mats, y0, num_steps: int,
                             feedback_sign: float = -1.0):
-        """Fused plant + controller rollout, all on the device.
+        """Fused plant + controller rollout, all on the device:
+        :meth:`make_rollout_closed_loop` applied.
 
         ``k_mats`` = (Ad, Bd, Cd, Dd), the discrete controller matrices
         (``Controller.discrete``), or (B, ...) stacks of them with a batched
@@ -437,22 +621,55 @@ class Stepper:
         reference's lockstep loop (ref: run_cylinder_example.py:83-86).
         Returns (carry, (y, dE, u, diverged)) stacked over the steps.
         """
-        ad, bd, cd, dd = (self._tensor(m) for m in k_mats)
-        xk = torch.zeros(ad.shape[:-1], dtype=self.dtype, device=self.device)
-        y = self._tensor(y0)
+        return self.make_rollout_closed_loop(num_steps, feedback_sign)(carry, k_mats, y0)
 
-        def mv(a, v):
-            return torch.einsum("...ij,...j->...i", a, v)
+    def make_rollout_closed_loop(self, num_steps: int, feedback_sign: float = -1.0):
+        """The counterpart of the JAX package's jitted fused closed loop:
+        :meth:`closed_loop_fn` (the port has no lowering step apart from
+        the capture, which the rollout makes on first use)."""
+        return self.closed_loop_fn(num_steps, feedback_sign)
 
-        ys, des, us, divs = [], [], [], []
-        for _ in range(num_steps):
-            fb = feedback_sign * y
-            u = mv(cd, xk) + mv(dd, fb)
-            xk = mv(ad, xk) + mv(bd, fb)
-            carry, out = self.step(carry, u)
-            y = out.y
-            ys.append(y)
-            des.append(out.dE)
-            us.append(u)
-            divs.append(out.diverged)
-        return carry, (torch.stack(ys), torch.stack(des), torch.stack(us), torch.stack(divs))
+    def closed_loop_fn(self, num_steps: int, feedback_sign: float = -1.0):
+        """The fused closed-loop rollout ``(carry, k_mats, y0) -> (carry',
+        (y, dE, u, diverged))``, batch-polymorphic as
+        :meth:`rollout_closed_loop` is. The controller update (its four
+        products) and the plant step make one body; on CUDA every step
+        after the first of a run replays it as one CUDA graph, captured
+        once per batch shape, controller shape and ``num_steps``; on the
+        CPU it runs eagerly. (The JAX package's function of this name is
+        the unjitted scan, taking its device tables as an argument.)"""
+
+        def roll(carry: StepCarry, k_mats, y0):
+            ad, bd, cd, dd = (self._tensor(m) for m in k_mats)
+            y0 = self._tensor(y0)
+            lead = (num_steps,) + tuple(y0.shape[:-1])
+            # xk and yk, the controller's state and the last y, start from
+            # zero and y0 and are carried from step to step in place
+            inputs = {"ad": ad, "bd": bd, "cd": cd, "dd": dd, "yk": y0,
+                      "xk": torch.zeros(ad.shape[:-1], dtype=self.dtype, device=self.device)}
+            outputs = {"y": (lead + (self.ns,), self.dtype), "dE": (lead, self.dtype),
+                       "u": (lead + (self.n_act,), self.dtype), "diverged": (lead, torch.bool)}
+
+            def make_step(order, s, f):
+                def mv(a, v):
+                    return torch.einsum("...ij,...j->...i", a, v)
+
+                def body():
+                    t = f["t"]
+                    fb = feedback_sign * f["yk"]
+                    u = mv(f["cd"], f["xk"]) + mv(f["dd"], fb)
+                    xk = mv(f["ad"], f["xk"]) + mv(f["bd"], fb)
+                    y, de, diverged, _ = self._advance(order, s, u)
+                    for k, v in (("y", y), ("dE", de), ("u", u), ("diverged", diverged)):
+                        f[k].index_copy_(0, t, v.unsqueeze(0))
+                    f["yk"].copy_(y)
+                    f["xk"].copy_(xk)
+                    t.add_(1)
+                return body
+
+            # the sign is a constant of the captured body: part of the key
+            carry, outs = self._roll(carry, ("closed", feedback_sign), num_steps, inputs,
+                                     outputs, make_step)
+            return carry, (outs["y"], outs["dE"], outs["u"], outs["diverged"])
+
+        return roll

@@ -7,6 +7,10 @@ so the package imports on machines without a CUDA toolkit. The library
 lands in ``flowcontrol_tpu_torch/_build/`` (listed in ``.gitignore``) under
 a name keyed by a hash of the sources and flags, so a changed source is
 rebuilt and an unchanged one is reused.
+
+Every kernel wrapper counts its launches in ``.launches`` (:func:`counted`);
+:data:`COUNTED` lists them, so that a CUDA graph can add on each replay the
+launches it captured (``core/graphs.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,18 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+#: the kernel wrappers that count their launches (see :func:`counted`)
+COUNTED: list = []
+
+
+def counted(fn):
+    """Give the kernel wrapper ``fn`` its launch count, ``fn.launches = 0``
+    (the wrapper adds to it where it launches its kernel), and list it in
+    :data:`COUNTED`."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
 
 
 def find_nvcc() -> str:

@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from flowcontrol_tpu_torch.ops.cuda_build import CudaLibrary
+from flowcontrol_tpu_torch.ops.cuda_build import CudaLibrary, counted
 
 #: the stage record of the descriptor array: these head words, then
 #: MAX_SEGS inbox segments of SEG_FIELDS words (unused segments are zero).
@@ -253,6 +253,7 @@ def _solve_cuda(mf, b: torch.Tensor, trace: torch.Tensor | None = None) -> torch
     return out.reshape(batch + (n,)).to(out_dtype)
 
 
+@counted
 def multifrontal_solve_fused(mf, b: torch.Tensor) -> torch.Tensor:
     """F: ``x = A⁻¹ b`` for b (..., n), at most :data:`F_MAX_ROWS` rows on
     CUDA. The kernel for a factor on CUDA (one launch), the plain version
@@ -263,9 +264,6 @@ def multifrontal_solve_fused(mf, b: torch.Tensor) -> torch.Tensor:
     if dev.type == "cpu" and b.device.type == "cpu":
         return multifrontal_solve_fused_plain(mf, b)
     raise ValueError(f"no F path for a factor on {dev} and b on {b.device}")
-
-
-multifrontal_solve_fused.launches = 0
 
 
 def fused_phase_times(mf, b: torch.Tensor) -> list[dict]:
@@ -324,6 +322,7 @@ def _check_offset(s, dev, width, size):
         raise ValueError(f"width {width} must be in 1..{min(size, 1024)}")
 
 
+@counted
 def take_along_axis_lanes(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """P2: ``out[r, j] = v[r, idx[r, j]]`` for v (R, n) float32 and idx
     (R, w) int32. The kernel for CUDA tensors, the plain version for CPU
@@ -344,6 +343,7 @@ def take_along_axis_lanes(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@counted
 def dynamic_slice(v: torch.Tensor, s: torch.Tensor, width: int) -> torch.Tensor:
     """P3: ``v[s : s + width]`` for v (n,) float32, with the offset ``s`` a
     one-element int32 tensor on v's device (the kernel reads it there, as
@@ -362,6 +362,7 @@ def dynamic_slice(v: torch.Tensor, s: torch.Tensor, width: int) -> torch.Tensor:
     return out
 
 
+@counted
 def dynamic_offset_accum_store(o: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """P4: ``o[s : s + len(v)] += v`` in place for o (n,) and v (w,) float32,
     the offset ``s`` a one-element int32 tensor on o's device; returns
@@ -379,8 +380,3 @@ def dynamic_offset_accum_store(o: torch.Tensor, s: torch.Tensor, v: torch.Tensor
     _raise_on(rc, "P4 dynamic_offset_accum_store")
     dynamic_offset_accum_store.launches += 1
     return o
-
-
-take_along_axis_lanes.launches = 0
-dynamic_slice.launches = 0
-dynamic_offset_accum_store.launches = 0

@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from flowcontrol_tpu_torch.ops.cuda_build import CudaLibrary
+from flowcontrol_tpu_torch.ops.cuda_build import CudaLibrary, counted
 
 #: largest q the narrow K2 instance (at most K2_NARROW_MAX right-hand
 #: sides) stages in shared memory for 8 right-hand sides (227 KB per block
@@ -125,6 +125,7 @@ def _stack_matvec_cuda(a, v, out):
     return out
 
 
+@counted
 def stack_matvec(a: torch.Tensor, v: torch.Tensor, out: torch.Tensor | None = None):
     """K2: ``out[..., m, p] = Σ_q a[m, p, q] v[..., m, q]``.
 
@@ -140,9 +141,6 @@ def stack_matvec(a: torch.Tensor, v: torch.Tensor, out: torch.Tensor | None = No
         r = stack_matvec_plain(a, v)
         return r if out is None else out.copy_(r)
     raise ValueError(f"no K2 path for a on {a.device} and v on {v.device}")
-
-
-stack_matvec.launches = 0
 
 
 # ── P1: inbox gather-sum ─────────────────────────────────────────────────────
@@ -183,6 +181,7 @@ def _gather_sum_sub_cuda(buf, t, xe, out):
     return out
 
 
+@counted
 def gather_sum_sub(buf: torch.Tensor, t: torch.Tensor, xe: torch.Tensor,
                    out: torch.Tensor | None = None):
     """P1: ``out[..., j] = xe[..., j] − Σ_k buf[..., t[k, j]]``.
@@ -199,6 +198,3 @@ def gather_sum_sub(buf: torch.Tensor, t: torch.Tensor, xe: torch.Tensor,
         r = gather_sum_sub_plain(buf, t, xe)
         return r if out is None else out.copy_(r)
     raise ValueError(f"no P1 path for buf on {buf.device} and xe on {xe.device}")
-
-
-gather_sum_sub.launches = 0

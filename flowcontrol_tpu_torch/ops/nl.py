@@ -27,7 +27,7 @@ N(u) is the one u-dependent element pass of every time step (and of
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -39,7 +39,7 @@ from flowcontrol_tpu_torch.fem.assembly import (
     velocity_cell_dofs,
 )
 from flowcontrol_tpu_torch.mesh.dofmap import TaylorHoodSpace
-from flowcontrol_tpu_torch.ops.cuda_build import CudaLibrary
+from flowcontrol_tpu_torch.ops.cuda_build import CudaLibrary, counted
 
 
 #: cells of one K1 patch (csrc/nl_convection.cu kCells: a block's 256
@@ -188,8 +188,10 @@ class NLTables:
     patches: NLPatches
     patch_dev: dict
     #: K1's arrival counters on the device, zero between calls (the kernel
-    #: leaves them zero); grown on demand
-    arrivals: torch.Tensor | None = None
+    #: leaves them zero): one set per (device, size), made on first use and
+    #: never replaced, since a CUDA graph that captured a K1 launch goes on
+    #: using the set it captured
+    arrivals: dict = field(default_factory=dict)
 
     @classmethod
     def build(cls, geom: CellGeometry, space: TaylorHoodSpace,
@@ -340,9 +342,9 @@ def _nonlinear_convection_cuda(t: NLTables, u: torch.Tensor) -> torch.Tensor:
     n_halo, n_slots = len(pt.halo_node), len(pt.slot_halo)
     partial = torch.empty((b, max(n_slots, 1), 2), dtype=torch.float32, device=dev)
     need = -(-b // tile) * max(n_halo, 1)
-    if t.arrivals is None or t.arrivals.numel() < need or t.arrivals.device != dev:
-        t.arrivals = torch.zeros(need, dtype=torch.int32, device=dev)
-    arrivals = t.arrivals
+    arrivals = t.arrivals.get((dev, need))
+    if arrivals is None:
+        arrivals = t.arrivals[(dev, need)] = torch.zeros(need, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.nl_convection_f32(
         u2.data_ptr(), out.data_ptr(), n, t.n_vnodes, b, tile, t.phi2.data_ptr(),
@@ -360,6 +362,7 @@ def _nonlinear_convection_cuda(t: NLTables, u: torch.Tensor) -> torch.Tensor:
     return out.reshape(u.shape)
 
 
+@counted
 def nonlinear_convection(t: NLTables, u: torch.Tensor) -> torch.Tensor:
     """N(u) for u (..., n_dofs): kernel K1 on CUDA, the plain version on CPU.
 
@@ -371,6 +374,3 @@ def nonlinear_convection(t: NLTables, u: torch.Tensor) -> torch.Tensor:
     if u.device.type == "cpu":
         return nonlinear_convection_plain(t, u)
     raise ValueError(f"no N(u) path for device type {u.device.type!r}")
-
-
-nonlinear_convection.launches = 0

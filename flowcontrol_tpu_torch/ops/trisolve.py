@@ -34,7 +34,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from flowcontrol_tpu_torch.ops.cuda_build import CudaLibrary
+from flowcontrol_tpu_torch.ops.cuda_build import CudaLibrary, counted
 from flowcontrol_tpu_torch.solvers.block_lu import block_lu_solve
 
 #: the single right-hand-side kernel stages one block row of the vector in
@@ -163,7 +163,7 @@ def block_lu_solve_scheduled_plain(factors, b: torch.Tensor, bs: int, n: int,
     return out[:n, :nrhs].T.contiguous().reshape(batch + (n,)).to(b.dtype)
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=None)  # never evicted: a CUDA graph of a K3 launch reads its schedule
 def _schedule_on(nb: int, tpb: int, ns: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.array(panel_schedule(nb, tpb, ns)), device=device)
 
@@ -229,6 +229,7 @@ def _solve_cuda(lu, dinv, b, bs: int, n: int) -> torch.Tensor:
     return out[:n, :nrhs].T.contiguous().reshape(batch + (n,))
 
 
+@counted
 def block_lu_solve_fused(factors, b: torch.Tensor, bs: int, n: int) -> torch.Tensor:
     """K3: solve ``A x = b`` from BlockLU factors ``(lu, dinv)``; b is (..., n).
 
@@ -240,6 +241,3 @@ def block_lu_solve_fused(factors, b: torch.Tensor, bs: int, n: int) -> torch.Ten
     if lu.device.type == "cpu" and b.device.type == "cpu":
         return block_lu_solve(factors, b, bs=bs, n=n)
     raise ValueError(f"no K3 path for a factor on {lu.device} and b on {b.device}")
-
-
-block_lu_solve_fused.launches = 0

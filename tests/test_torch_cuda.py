@@ -47,6 +47,21 @@ package, so it also runs on a GPU machine without them:
   rows.
 - P2, P3 and P4 (the same source) at the probe's shapes and at one other:
   bitwise equal to their plain versions, one counted launch per call.
+- Kernel S (``csrc/csr_spmm.cu``, the batched step's sparse products)
+  against its plain version (cuSPARSE's product) on the coarse cylinder's
+  mass matrix, f32 and f64, batch 1, 3, 64 and 256: relative error <= 1e-5
+  (f32) or 1e-12 (f64), two calls bitwise equal, one counted launch per
+  call.
+- The compiled entry points as CUDA graphs, on every path (dense,
+  multifrontal through F at B = 1 and through K2/P1 at B = 256, block
+  through K3 at B = 1 and 256, the cavity's multifrontal at B = 1 and 64):
+  ``compiled_step`` bitwise equal to ``Stepper.step`` step by step, its
+  graph holding the path's kernels, each replay adding exactly the
+  eager step's launches, a held carry keeping its values; 20-step
+  ``make_rollout_open_loop`` and ``make_rollout_closed_loop`` bitwise
+  equal to the eager loops; a graph of K1 over 100 replays bitwise equal
+  to the eager call; a body that cannot be captured raises. The f32 pin
+  runs through ``compiled_step``'s graph.
 """
 
 import numpy as np
@@ -220,6 +235,9 @@ def test_torch_cuda_f32_pin(cuda, pin_base_flows, name, path, tmp_path, monkeypa
     measured = (f"field {rel:.3e}: velocity {part(slice(nv2)):.3e}, pressure "
                 f"{part(slice(nv2, None)):.3e}; y max|f32 - f64| {np.abs(y_32 - y_ref).max():.3e}")
     print(f"f32 pin {name} {path} (refinement sweeps {st._refine}): {measured}")
+    # the steps after the first ran through compiled_step's CUDA graph
+    assert fs._step_compiled == st._graphed_step
+    assert [p.replays for p in st._programs.values()] == [len(y_32) - 2]
     assert rel < 1e-4, measured
     if name == "cylinder":
         assert np.allclose(y_32, y_ref, rtol=5e-4, atol=1e-6), np.abs(y_32 - y_ref).max()
@@ -410,3 +428,236 @@ def test_torch_cuda_p2_p3_p4_match_plain(cuda, n, w, s):
         torch.cuda.synchronize()
         assert kern.launches == before + 1
         assert torch.equal(got, ref), kern.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch", [1, 3, 64, 256])
+def test_torch_cuda_s_matches_plain(cuda, dtype, batch):
+    """Kernel S (csrc/csr_spmm.cu) against its plain version (cuSPARSE's
+    product) on the coarse cylinder's mass matrix: relative error <= 1e-5
+    (f32) or 1e-12 (f64), two calls bitwise equal, one counted launch per
+    call; mixed dtypes refused."""
+    from flowcontrol_tpu_torch.core.stepper import csr_to_device
+    from flowcontrol_tpu_torch.ops.spmm import csr_matmul, csr_matmul_plain
+
+    fs = CylinderFlowSolver.make_default(mesh=cylinder_mesh(**COARSE), device="cpu")
+    a = csr_to_device(to_scipy_csr(fs.forms.mass_elements(), fs.space.cell_dofs,
+                                   fs.space.n_dofs), cuda, dtype)
+    x = torch.as_tensor(np.random.default_rng(batch).standard_normal((batch, fs.space.n_dofs)),
+                        dtype=dtype, device=cuda)
+    before = csr_matmul.launches
+    got = csr_matmul(a, x)
+    again = csr_matmul(a, x)
+    ref = csr_matmul_plain(a, x)
+    torch.cuda.synchronize()
+    assert csr_matmul.launches == before + 2
+    assert got.shape == x.shape and got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, again)  # fixed-order sums: bitwise repeatable
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+    with pytest.raises(TypeError):
+        csr_matmul(a, x.to(torch.float16))
+
+
+# ── The compiled entry points as CUDA graphs ─────────────────────────────────
+
+# (flow, solve path, batch): every path's captured step on the reference's
+# coarse meshes, at the main paths' widths (the cavity's multifrontal factor
+# taken with force_substructure; its generated default mesh is past the
+# dense range)
+GRAPH_CASES = [("cylinder", "dense", 1), ("cylinder", "multifrontal", 1),
+               ("cylinder", "multifrontal", 256), ("cylinder", "block", 1),
+               ("cylinder", "block", 256), ("cavity", "multifrontal", 1),
+               ("cavity", "multifrontal", 64)]
+GRAPH_STEPS = 6
+CARRY_FIELDS = ("u_n", "u_nn", "mu_n", "mu_nn", "n_prev", "u_ctrl_prev")
+
+
+def _graph_kernels(path, batch):
+    """The counted kernels a captured step of ``path`` at ``batch`` holds."""
+    solve = {"dense": set(), "block": {block_lu_solve_fused},
+             "multifrontal": ({mf_fused.multifrontal_solve_fused} if batch <= 8
+                              else {stack_matvec, gather_sum_sub})}[path]
+    return {nonlinear_convection} | solve
+
+
+def _graph_case(pin_base_flows, name, path, batch, tmp_path, monkeypatch):
+    """A Stepper on the card for one case, a seeded batch of states near
+    the base flow and seeded controls for 20 steps."""
+    if path == "block":
+        monkeypatch.setattr(Stepper, "LAPACK_LU_MAX_N", 4096)
+    mesh, u0, p0 = pin_base_flows[name]
+    cyl = name == "cylinder"
+    cls = CylinderFlowSolver if cyl else CavityFlowSolver
+    fs = cls.make_default(Re=100 if cyl else 7500, mesh=mesh, path_out=tmp_path, device="cuda",
+                          stepper_options=PATHS[path])
+    fs._assign_steady_state(u0, p0)
+    fs.initialize_time_stepping()
+    st = fs.stepper
+    assert isinstance(st._solvers[-1], SOLVERS[path]) and st.dtype == torch.float32
+    rng = np.random.default_rng(batch)
+    lead = () if batch == 1 else (batch,)
+    up = fs._carry.u_n.double().cpu().numpy() + 1e-3 * rng.standard_normal(lead + (fs.space.n_dofs,))
+    us = 0.1 * rng.standard_normal((20,) + lead + (st.n_act,))
+    return st, up, us
+
+
+def _same(got, want, path):
+    """Bitwise, or on the dense path within 1e-6 relative (cuBLAS may take
+    another algorithm under capture); returns which held."""
+    if torch.equal(got, want):
+        return "bitwise"
+    assert path == "dense", f"replay differs from the eager step on the {path} path"
+    rel = float((got.double() - want.double()).abs().max() / want.double().abs().max())
+    assert rel <= 1e-6, rel
+    return f"within {rel:.1e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,path,batch", GRAPH_CASES)
+def test_torch_cuda_graph_step_matches_eager(cuda, pin_base_flows, name, path, batch,
+                                             tmp_path, monkeypatch):
+    """compiled_step against Stepper.step from one carry: the first step
+    eager in both, then the captured step (warm-up, then replays): every
+    output and carry field bitwise equal (the dense path: or within 1e-6);
+    the graph holds the path's kernels, each replay adds exactly the
+    launches the eager step makes, and a carry the caller holds keeps its
+    values."""
+    from flowcontrol_tpu_torch.ops.cuda_build import COUNTED
+
+    st, up, us = _graph_case(pin_base_flows, name, path, batch, tmp_path, monkeypatch)
+    eager, c = [], st.init_carry(up)
+    for k in range(GRAPH_STEPS):
+        before = [fn.launches for fn in COUNTED]
+        c, out = st.step(c, us[k])
+        eager.append((c, out))
+    eager_counts = {fn: fn.launches - b for fn, b in zip(COUNTED, before) if fn.launches != b}
+    step = st.compiled_step()
+    c = st.init_carry(up)
+    held = verdicts = None
+    for k in range(GRAPH_STEPS):
+        if k == 2:
+            before = [fn.launches for fn in COUNTED]
+            verdicts = set()
+        c, out = step(c, us[k])
+        ce, oe = eager[k]
+        for got, want in [(out.y, oe.y), (out.dE, oe.dE), (out.x, oe.x),
+                          *((getattr(c, f), getattr(ce, f)) for f in CARRY_FIELDS)]:
+            v = _same(got, want, path)
+            if verdicts is not None:
+                verdicts.add(v)
+        assert torch.equal(out.diverged, oe.diverged) and c.it == ce.it == k + 1
+        if k == 1:
+            held = (c, [getattr(c, f).clone() for f in CARRY_FIELDS])
+    torch.cuda.synchronize()
+    progs = [p for p in st._programs.values() if p.graph is not None]
+    assert len(progs) == 1 and progs[0].replays == GRAPH_STEPS - 2
+    prog = progs[0]
+    assert set(prog.counts) >= _graph_kernels(path, batch), prog.counts
+    assert prog.counts == eager_counts
+    for fn, b in zip(COUNTED, before):
+        assert fn.launches - b == (GRAPH_STEPS - 2) * prog.counts.get(fn, 0), fn.__name__
+    for f, v in zip(CARRY_FIELDS, held[1]):
+        assert torch.equal(getattr(held[0], f), v), f
+    print(f"graph step {name} {path} B={batch}: replays against the eager step: "
+          f"{sorted(verdicts)}; launches per replay "
+          f"{ {fn.__name__: k for fn, k in prog.counts.items()} }; pool {prog.pool_bytes} bytes")
+
+
+def _mats(st, batch, device):
+    rng = np.random.default_rng(7)
+    lead = () if batch == 1 else (batch,)
+    mats = (0.9 * np.eye(2) + 0.05 * rng.standard_normal(lead + (2, 2)),
+            0.1 * rng.standard_normal(lead + (2, st.ns)),
+            0.2 * rng.standard_normal(lead + (st.n_act, 2)),
+            0.05 * rng.standard_normal(lead + (st.n_act, st.ns)))
+    return [torch.as_tensor(m, dtype=st.dtype, device=device) for m in mats]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["open", "closed"])
+@pytest.mark.parametrize("name,path,batch", GRAPH_CASES)
+def test_torch_cuda_graph_rollout_matches_eager(cuda, pin_base_flows, name, path, batch, loop,
+                                                tmp_path, monkeypatch):
+    """A 20-step graphed rollout (make_rollout_open_loop, or
+    make_rollout_closed_loop with a seeded controller, stacked over the
+    batch) against the eager loop of Stepper.step and the controller's
+    products: y, dE (u) and the final carry bitwise (the dense path: or
+    within 1e-6)."""
+    st, up, us = _graph_case(pin_base_flows, name, path, batch, tmp_path, monkeypatch)
+    c = st.init_carry(up)
+    ys, des, uu = [], [], []
+    if loop == "open":
+        for u in us:
+            c, out = st.step(c, u)
+            ys.append(out.y)
+            des.append(out.dE)
+        carry, outs = st.make_rollout_open_loop()(st.init_carry(up), us)
+        got = [(outs.y, torch.stack(ys)), (outs.dE, torch.stack(des))]
+    else:
+        ad, bd, cd, dd = _mats(st, batch, cuda)
+        y0 = torch.as_tensor(up, dtype=st.dtype, device=cuda) @ st._dev["c"].T
+        xk, y = torch.zeros(ad.shape[:-1], dtype=st.dtype, device=cuda), y0
+
+        def mv(a, v):
+            return torch.einsum("...ij,...j->...i", a, v)
+
+        for _ in range(20):
+            fb = -y
+            u = mv(cd, xk) + mv(dd, fb)
+            xk = mv(ad, xk) + mv(bd, fb)
+            c, out = st.step(c, u)
+            y = out.y
+            ys.append(y)
+            des.append(out.dE)
+            uu.append(u)
+        carry, (ys_g, des_g, us_g, _) = st.make_rollout_closed_loop(20)(
+            st.init_carry(up), (ad, bd, cd, dd), y0)
+        got = [(ys_g, torch.stack(ys)), (des_g, torch.stack(des)), (us_g, torch.stack(uu))]
+    verdicts = {_same(g, w, path) for g, w in got}
+    verdicts |= {_same(getattr(carry, f), getattr(c, f), path) for f in CARRY_FIELDS}
+    assert carry.it == c.it == 20
+    print(f"graph rollout ({loop}) {name} {path} B={batch}: {sorted(verdicts)}")
+
+
+@pytest.mark.cuda
+def test_torch_cuda_graph_k1_replays(cuda):
+    """A CUDA graph of one K1 launch (its self-resetting arrival counters
+    captured): 100 replays on changing inputs, each bitwise equal to the
+    eager call, with eager calls of another width (another set of
+    counters) in between; one counted launch per replay."""
+    from flowcontrol_tpu_torch.core.graphs import Program
+
+    space = TaylorHoodSpace.build(MESHES["cylinder"]())
+    tables = NLTables.build(CellGeometry(space), space, cuda, torch.float32)
+    rng = np.random.default_rng(11)
+    inputs = torch.as_tensor(rng.standard_normal((5, 1, space.n_dofs)), dtype=torch.float32,
+                             device=cuda)
+    wide = torch.as_tensor(rng.standard_normal((64, space.n_dofs)), dtype=torch.float32,
+                           device=cuda)
+    u = inputs[0].clone()
+    prog = Program(lambda: nonlinear_convection(tables, u), cuda)
+    prog.run()
+    for i in range(100):
+        u.copy_(inputs[i % 5])
+        before = nonlinear_convection.launches
+        got = prog.run().clone()
+        assert nonlinear_convection.launches == before + 1
+        assert torch.equal(got, nonlinear_convection(tables, inputs[i % 5])), i
+        if i % 10 == 0:
+            nonlinear_convection(tables, wide)
+    assert prog.replays == 100 and prog.counts == {nonlinear_convection: 1}
+
+
+@pytest.mark.cuda
+def test_torch_cuda_graph_capture_failure_raises(cuda):
+    """A body that cannot be captured (it copies to the host) raises: no
+    program falls back to running its body eagerly."""
+    from flowcontrol_tpu_torch.core.graphs import Program
+
+    x = torch.ones(8, device=cuda)
+    prog = Program(lambda: float(x.sum()), cuda)
+    with pytest.raises(RuntimeError):
+        prog.run()
+    assert prog.graph is None

@@ -151,15 +151,24 @@ capture); steps/s in turns (eager, graph, graph, eager); the CUDA runtime
 calls that issued work from the host per step and the device's kernels and
 copies per step (torch.profiler); device time per step from CUDA events
 around calls queued behind a device sleep and the busy share (device /
-wall); the graph memory pool's bytes. 14s: kernel S, the batched step's
-sparse products (the mass in f32, the refinement residual's operator in
-f64) summed in a fixed order, against cuSPARSE's product at B = 256, and
-the launches of S on the batched paths (phases 13, 14, 20).
+wall); the graph memory pool's bytes. 14s and 20s: kernel S, the batched
+step's sparse products summed in a fixed order, on the zero-free mass (f32)
+and BDF2 refinement operator (f64) at B = 256 (cylinder) and B = 64
+(cavity): the tiled kernel bitwise equal to the row-wise reference kernel
+and within 1e-5 (f32) or 1e-12 (f64) of cuSPARSE's product, the fused
+refinement residual bitwise equal to its composition; their times beside
+the row-wise kernel, cuSPARSE's column- and row-major products, the
+compositions and the bound, each matrix's stored and assembled entries
+and its plan's tiles; and the launches of S (csr_matmul, csr_residual:
+"S/R" in the launch lists) on the batched paths (phases 13, 14, 20),
+exact. Phase 3 also holds the device mass to the assembly's nonzero
+count.
 
 The line before the last is a JSON object describing each kernel (K1 at
 batch 1, 256 and 64; K2 at batch 1, 256 and 64; K3 at batch 1 and at
 batch 256; P1; F at the cylinder's and the cavity's factor; P2, P3, P4;
-S at batch 256, f32, with its f64 numbers beside them):
+S's csr_matmul at batch 256, f32, with its f64 and cavity numbers beside
+them, and S's csr_residual at batch 256 with the cavity's beside):
 its launches on its main path (K1's and K2's batched rows: their launches
 on the paths of that width), its largest error
 against its plain version (a K3 row's is the one measured at that row's
@@ -1201,47 +1210,162 @@ def phase_graph_rollout(st, carry, path: str, tag: str, k_mats=None, y0=None) ->
                         dev_ms, check, st.graph_pool_bytes(), batch)
 
 
-def phase_spmm(st, tag: str) -> dict:
-    """Kernel S against its plain version (cuSPARSE's column-major product,
-    the batched step's product before S) on the cylinder's mass (f32) and
-    BDF2 refinement operator (f64) at B = BATCH: error, two calls bitwise
-    equal, one counted launch per call; device times (queued events) of S
-    (with its two layout copies), plain and the library's row-major product
-    ``a @ x.T.contiguous()`` beside the bound (the f64 operations at the
-    data sheet's 34 TFLOP/s)."""
-    from flowcontrol_tpu_torch.ops.spmm import csr_matmul, csr_matmul_plain
+def spmm_launches(st, steps: int, first: bool) -> list[int]:
+    """Kernel S's launches [csr_matmul, csr_residual] in ``steps`` batched
+    steps, the first of them (``first``) the borrowed BDF1 step after
+    ``init_carry``: init_carry's mass, the borrowed step's f64 residuals
+    (csr_matmul: its x accumulates in f64) and its mass; then per step the
+    mass, the first refinement sweep's fused residual and a csr_matmul for
+    every later sweep."""
+    refine = st._refine.get(st._order_idx[2], 0)
+    per_step = [1 + max(refine - 1, 0), min(refine, 1)]
+    later = steps - int(first)
+    return [per_step[0] * later + (st.BORROW_ITERS + 2) * int(first), per_step[1] * later]
 
+
+def assembled_mass_nnz(st) -> tuple[int, int]:
+    """The mass as the element assembly stores it: (entries, nonzero ones)."""
+    from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
+
+    m = to_scipy_csr(st.forms.mass_elements(), st.space.cell_dofs, st.space.n_dofs)
+    return m.nnz, int(np.count_nonzero(m.data))
+
+
+def spmm_bound(a, batch: int, x_bytes: int, out_bytes: int) -> tuple[float, str, float]:
+    """S's least time in ms for ``batch`` vectors through the CSR ``a``:
+    x read once, out (and b, for the residual: ``out_bytes`` counts both)
+    written once, the matrix at its CSR minimum read once (each stored
+    nonzero's value and int32 column, the int32 row pointers), and
+    2 nnz B operations at the f32 or f64 rate. Returns (ms, what bounds
+    it, bytes)."""
+    nnz, n_rows, n = a.values().numel(), a.shape[0], a.shape[1]
+    nbytes = (x_bytes * batch * n + out_bytes * batch * n_rows
+              + nnz * (a.element_size() + 4) + 4 * (n_rows + 1))
+    t_ops = 2.0 * nnz * batch / (PEAK_F32_PER_S if a.dtype == torch.float32 else PEAK_F64_PER_S)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def spmm_plan_cost(st) -> tuple[int, int, float]:
+    """The tile plans the Stepper's device matrices carry: (count, device
+    bytes, host seconds to build them again from the matrices' host
+    arrays, the copies to the card included)."""
+    from flowcontrol_tpu_torch.ops.spmm import SpmmPlan
+
+    mats = [st._dev["m"], st._dev.get("lvel")]
+    mats += list(st._dev.get("a_bc", {}).values()) + list(st._dev.get("a_refine", {}).values())
+    mats = [a for a in mats if a is not None and hasattr(a, "spmm_plan")]
+    seconds = 0.0
+    for a in mats:
+        host = (a.crow_indices().cpu().numpy(), a.col_indices().cpu().numpy(),
+                a.values().cpu().numpy())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        SpmmPlan.build(*host, a.device)
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+    return len(mats), sum(a.spmm_plan.nbytes for a in mats), seconds
+
+
+def phase_spmm(st, tag: str, batch: int) -> dict:
+    """Kernel S on the Stepper's zero-free mass (f32) and BDF2 refinement
+    operator (f64) at ``batch``: the tiled kernel bitwise equal to the
+    row-wise reference kernel and over two calls, one counted launch per
+    call, within 1e-5 (f32) or 1e-12 (f64) of its plain version
+    (cuSPARSE's column-major product); the fused residual bitwise equal to
+    its composition ``(b.double() - csr_matmul(a, x.double())).to(f32)``
+    and within 1e-5 of its plain version (the composition through
+    cuSPARSE). Device times (queued events) of each beside the row-wise
+    kernel, the plain version, the library's row-major product
+    ``a @ x.T.contiguous()`` on the same matrix, the compositions (through
+    S and through the row-wise kernel) and the bound on the stored
+    nonzeros; the matrices' stored and assembled entries, their plans'
+    tiles, longest column lists and bytes; all the Stepper's plans' bytes
+    and host build time."""
+    from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
+    from flowcontrol_tpu_torch.ops.spmm import (
+        csr_matmul,
+        csr_matmul_plain,
+        csr_matmul_rowwise,
+        csr_residual,
+        csr_residual_plain,
+    )
+
+    space, oi = st.space, st._order_idx[2]
+    raw = to_scipy_csr(st.forms.transient_lhs(2, st.u0_nodes), space.cell_dofs, space.n_dofs)
+    stored = {"f32": f"the assembly stores {assembled_mass_nnz(st)[0]}",
+              "f64": f"the assembly stores {raw.nnz}, its BC elimination "
+                     f"{st.bcs.eliminate_csr(raw)[0].nnz}"}
+    gen = torch.Generator(device=st.device).manual_seed(3)
     out = {}
-    for name, a in (("f32", st._dev["m"]), ("f64", st._dev["a_refine"][st._order_idx[2]])):
-        n = a.shape[1]
-        x = torch.randn((BATCH, n), generator=torch.Generator(device=st.device).manual_seed(3),
-                        device=st.device, dtype=torch.float32).to(a.dtype)
+    for name, a in (("f32", st._dev["m"]), ("f64", st._dev["a_refine"][oi])):
+        n, plan = a.shape[1], a.spmm_plan
+        x = torch.randn((batch, n), generator=gen, device=st.device).to(a.dtype)
         before = csr_matmul.launches
         got, again = csr_matmul(a, x), csr_matmul(a, x)
-        ref = csr_matmul_plain(a, x)
+        counted = csr_matmul.launches - before
+        ref, plain = csr_matmul_rowwise(a, x), csr_matmul_plain(a, x)
         torch.cuda.synchronize()
-        rel, abs_err = rel_err(got, ref)
-        same = torch.equal(got, again)
+        rel, abs_err = rel_err(got, plain)
+        same = torch.equal(got, again) and torch.equal(got, ref)
         tol = MF_TOL if a.dtype == torch.float32 else 1e-12
-        if not (same and csr_matmul.launches == before + 2 and rel <= tol):
-            raise AssertionError(f"{tag}: S {name}: error {rel:.3e}, repeatable {same}")
-        nnz, s = a.values().numel(), a.values().element_size()
-        nbytes = nnz * (s + 8) + (a.shape[0] + 1) * 8 + 2 * s * BATCH * n
-        flops = 2.0 * nnz * BATCH
-        t_ops = flops / (PEAK_F32_PER_S if s == 4 else PEAK_F64_PER_S)
-        bnd = max(nbytes / PEAK_BYTES_PER_S, t_ops) * 1e3
+        if not (same and counted == 2 and rel <= tol):
+            raise AssertionError(f"{tag}: S {name}: bitwise (two calls, row-wise) {same}, "
+                                 f"launches {counted}, error {rel:.3e}")
+        bnd, by, nbytes = spmm_bound(a, batch, a.element_size(), a.element_size())
         r = dict(max_abs_err=abs_err, ms=events_ms(lambda: csr_matmul(a, x), reps=10),
+                 rowwise_ms=events_ms(lambda: csr_matmul_rowwise(a, x), reps=10),
                  plain_ms=events_ms(lambda: csr_matmul_plain(a, x), reps=10),
                  library_ms=events_ms(lambda: a @ x.T.contiguous(), reps=10), bound_ms=bnd,
-                 bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >= t_ops else "operations")
-        log(f"{tag}: S {name} B={BATCH} n={n} nnz={nnz}: max|k-p|/max|p| = {rel:.3e} (tol "
-            f"{tol:g}), max|k-p| = {abs_err:.3e}, two calls bitwise equal; device time per call "
-            f"(queued events): kernel {r['ms']:.4f} ms (with its two layout copies), plain "
-            f"(cuSPARSE, column-major) {r['plain_ms']:.4f} ms, library (cuSPARSE, row-major) "
-            f"{r['library_ms']:.4f} ms, bound {bnd:.4f} ms ({r['bound_by']}, "
-            f"{nbytes / 1e9:.4f} GB); plain's repeatability: "
-            f"{torch.equal(ref, csr_matmul_plain(a, x))}")
+                 bound_by=by)
+        log(f"{tag}: S {name} B={batch} n={n}: {a.values().numel()} stored nonzeros "
+            f"({stored[name]}); plan {plan.n_tiles} tiles, longest column list "
+            f"{plan.max_cols}, {plan.staged_cols} staged columns ({plan.staged_cols / n:.2f} n), "
+            f"{plan.nbytes / 1e6:.2f} MB; bitwise equal to the row-wise kernel and over two calls; "
+            f"max|k-p|/max|p| = {rel:.3e} (tol {tol:g}); device time per call (queued events): "
+            f"kernel {r['ms']:.4f} ms, row-wise kernel (with its two layout copies) "
+            f"{r['rowwise_ms']:.4f}, plain (cuSPARSE, column-major) {r['plain_ms']:.4f}, library "
+            f"(cuSPARSE, row-major) {r['library_ms']:.4f}, bound {bnd:.4f} ms ({by}, "
+            f"{nbytes / 1e9:.4f} GB)")
         out[name] = r
+    # the fused residual on the operator, f32 x and b
+    a = st._dev["a_refine"][oi]
+    x = torch.randn((batch, a.shape[1]), generator=gen, device=st.device)
+    b = torch.randn((batch, a.shape[0]), generator=gen, device=st.device)
+
+    def composition():
+        return (b.double() - csr_matmul(a, x.double())).to(torch.float32)
+
+    def composition_rowwise():
+        return (b.double() - csr_matmul_rowwise(a, x.double())).to(torch.float32)
+
+    before = csr_residual.launches
+    got, again = csr_residual(a, b, x), csr_residual(a, b, x)
+    counted = csr_residual.launches - before
+    want, want_rw, plain = composition(), composition_rowwise(), csr_residual_plain(a, b, x)
+    torch.cuda.synchronize()
+    rel, abs_err = rel_err(got, plain)
+    same = torch.equal(got, again) and torch.equal(got, want) and torch.equal(got, want_rw)
+    if not (same and counted == 2 and rel <= MF_TOL):
+        raise AssertionError(f"{tag}: S residual: bitwise (two calls, compositions) {same}, "
+                             f"launches {counted}, error {rel:.3e}")
+    bnd, by, nbytes = spmm_bound(a, batch, 4, 8)
+    r = dict(max_abs_err=abs_err, ms=events_ms(lambda: csr_residual(a, b, x), reps=10),
+             composition_ms=events_ms(composition, reps=10),
+             composition_rowwise_ms=events_ms(composition_rowwise, reps=10),
+             plain_ms=events_ms(lambda: csr_residual_plain(a, b, x), reps=10), bound_ms=bnd,
+             bound_by=by)
+    log(f"{tag}: S residual B={batch}: bitwise equal to (b.double() - A x.double()).to(f32) "
+        f"through S and through the row-wise kernel, and over two calls; max|k-p|/max|p| = "
+        f"{rel:.3e} (tol {MF_TOL:g}); device time per call (queued events): kernel "
+        f"{r['ms']:.4f} ms, the composition through S {r['composition_ms']:.4f}, through the "
+        f"row-wise kernel {r['composition_rowwise_ms']:.4f}, plain (the composition through "
+        f"cuSPARSE) {r['plain_ms']:.4f}, bound {bnd:.4f} ms ({by}, {nbytes / 1e9:.4f} GB)")
+    out["residual"] = r
+    count, nbytes, seconds = spmm_plan_cost(st)
+    log(f"{tag}: S's tile plans: {count} matrices of the Stepper carry one, {nbytes / 1e6:.2f} MB "
+        f"on the card in all; built again from the matrices' host arrays in {seconds:.3f} s "
+        f"(host, copies to the card included)")
     return out
 
 
@@ -1280,7 +1404,7 @@ def main() -> int:
     )
     from flowcontrol_tpu_torch.ops.mf_matvec import MF_KERNELS, gather_sum_sub, stack_matvec
     from flowcontrol_tpu_torch.ops.nl import NL_KERNEL, nonlinear_convection
-    from flowcontrol_tpu_torch.ops.spmm import SPMM_KERNEL, csr_matmul
+    from flowcontrol_tpu_torch.ops.spmm import SPMM_KERNEL, csr_matmul, csr_residual
     from flowcontrol_tpu_torch.ops.trisolve import (
         TRISOLVE_KERNEL,
         block_lu_solve_fused,
@@ -1339,7 +1463,7 @@ def main() -> int:
 
     fs.initialize_time_stepping()
     counters = (nonlinear_convection, stack_matvec, gather_sum_sub, block_lu_solve_fused,
-                multifrontal_solve_fused, csr_matmul)
+                multifrontal_solve_fused, csr_matmul, csr_residual)
     dense = run_path(fs, counters)
     st = dense["st"]
     k1_launches = dense["launches"][0]
@@ -1352,10 +1476,16 @@ def main() -> int:
         f"dE[-1] = {dense['de'][-1]:.6e}")
     log(f"phase 3: launches K1 {k1_launches} (expected {NUM_STEPS + 1}), K2 "
         f"{dense['launches'][1]}, P1 {dense['launches'][2]}, K3 {dense['launches'][3]}, F "
-        f"{dense['launches'][4]}, S {dense['launches'][5]} (expected 0)")
-    if dense["launches"] != [NUM_STEPS + 1, 0, 0, 0, 0, 0]:
+        f"{dense['launches'][4]}, S {dense['launches'][5]}, R {dense['launches'][6]} (expected "
+        f"0)")
+    m_dev, m_assembled = st._dev["m"].values().numel(), assembled_mass_nnz(st)
+    log(f"phase 3: the device mass stores {m_dev} entries, its assembly {m_assembled[0]} "
+        f"({m_assembled[1]} of them nonzero)")
+    if m_dev != m_assembled[1]:
+        raise AssertionError(f"device mass stores {m_dev} entries, {m_assembled[1]} nonzero")
+    if dense["launches"] != [NUM_STEPS + 1, 0, 0, 0, 0, 0, 0]:
         raise AssertionError(f"dense path launches {dense['launches']}, "
-                             f"expected {[NUM_STEPS + 1, 0, 0, 0, 0, 0]}")
+                             f"expected {[NUM_STEPS + 1, 0, 0, 0, 0, 0, 0]}")
 
     # ── phase 4: accuracy against host f64 ───────────────────────────────────
     host = HostF64Loop(fs)
@@ -1383,7 +1513,7 @@ def main() -> int:
     mf = st2._solvers[oi2]
     k2_per, p1_per = mf.launches_per_solve()
     solves = (1 + st2.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
-    expected = [NUM_STEPS + 1, 0, 0, 0, solves, 0]
+    expected = [NUM_STEPS + 1, 0, 0, 0, solves, 0, 0]
     t = mf.timings
     log(f"phase 6: solve kinds {st2._solver_kinds} (expected ['borrowed', 'multifrontal']), "
         f"dtype {st2.dtype}, refinement sweeps {st2._refine}")
@@ -1400,7 +1530,7 @@ def main() -> int:
         f"{NUM_STEPS - CTRL_STEPS} (dense path {dense['sps']:.2f}; {card}); "
         f"y[-1] = {mfp['ys'][-1].tolist()} (dense path {dense['ys'][-1].tolist()}), "
         f"dE[-1] = {mfp['de'][-1]:.6e}")
-    log(f"phase 6: launches K1/K2/P1/K3/F/S {mfp['launches']} (expected {expected}: {solves} "
+    log(f"phase 6: launches K1/K2/P1/K3/F/S/R {mfp['launches']} (expected {expected}: {solves} "
         f"solves, each one launch of F; the per-stage sweep would make {k2_per} K2 and "
         f"{p1_per} P1 launches per solve)")
     if st2._solver_kinds != ["borrowed", "multifrontal"] or not mf.takes_fused(1):
@@ -1440,7 +1570,7 @@ def main() -> int:
     k3_solves = (1 + st3.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + refine3)
     k3_per = launches_per_solve(blu.nb, 1)  # the single stream: one right-hand side
     k3_panel = launches_per_solve(blu.nb, BATCH)  # the batched paths: one persistent launch
-    expected = [NUM_STEPS + 1, 0, 0, k3_solves * k3_per, 0, 0]
+    expected = [NUM_STEPS + 1, 0, 0, k3_solves * k3_per, 0, 0, 0]
     y_rel = float(np.abs(blk["ys"][-1] - dense["ys"][-1]).max() / np.abs(dense["ys"][-1]).max())
     log(f"phase 10: solve kinds {st3._solver_kinds} (expected ['borrowed', 'block']), dtype "
         f"{st3.dtype}, refinement sweeps {st3._refine}; BlockLU n_pad {blu.n_pad}, bs {blu.bs}, "
@@ -1453,7 +1583,7 @@ def main() -> int:
         f"{NUM_STEPS - CTRL_STEPS} (dense path {dense['sps']:.2f}, multifrontal {mfp['sps']:.2f}; "
         f"{card}); y[-1] = {blk['ys'][-1].tolist()}, relative to the dense path's {y_rel:.3e} "
         f"(tol 1e-3), dE[-1] = {blk['de'][-1]:.6e}")
-    log(f"phase 10: launches K1/K2/P1/K3/F/S {blk['launches']} (expected {expected}: "
+    log(f"phase 10: launches K1/K2/P1/K3/F/S/R {blk['launches']} (expected {expected}: "
         f"{k3_solves} solves of {k3_per} K3 launches, all made by one call of the C entry point; "
         f"a panel of right-hand sides takes {k3_panel} launch per solve)")
     if st3._solver_kinds != ["borrowed", "block"] or not isinstance(blu, BlockLU):
@@ -1476,15 +1606,12 @@ def main() -> int:
     open_blk = phase_batched_open(st3, up, counters, "phase 13 (block)")
     open_mf = phase_batched_open(st2, up, counters, "phase 13 (multifrontal)")
     solves_mf = (1 + st2.BORROW_ITERS) + (BATCH_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
-    # S: the mass of init_carry, the borrowed step's residuals and mass, then
-    # per step the mass and one residual per refinement sweep
-    s_blk = 1 + (st3.BORROW_ITERS + 1) + (BATCH_STEPS - 1) * (1 + refine3)
-    s_mf = 1 + (st2.BORROW_ITERS + 1) + (BATCH_STEPS - 1) * (1 + st2._refine.get(oi2, 0))
-    expected_open = {"block": [BATCH_STEPS + 1, 0, 0, solves_b * k3_panel, 0, s_blk],
+    s_blk, s_mf = spmm_launches(st3, BATCH_STEPS, True), spmm_launches(st2, BATCH_STEPS, True)
+    expected_open = {"block": [BATCH_STEPS + 1, 0, 0, solves_b * k3_panel, 0, *s_blk],
                      "multifrontal": [BATCH_STEPS + 1, solves_mf * k2_per, solves_mf * p1_per,
-                                      0, 0, s_mf]}
+                                      0, 0, *s_mf]}
     for name, r in (("block", open_blk), ("multifrontal", open_mf)):
-        log(f"phase 13 ({name}): launches K1/K2/P1/K3/F/S {r['launches']} "
+        log(f"phase 13 ({name}): launches K1/K2/P1/K3/F/S/R {r['launches']} "
             f"(expected {expected_open[name]})")
         if r["launches"] != expected_open[name]:
             raise AssertionError(f"batched open loop ({name}) launches {r['launches']}")
@@ -1497,18 +1624,20 @@ def main() -> int:
     per_step_mf = 1 + st2._refine.get(oi2, 0)
     expected_closed = {
         "block": [BATCH_STEPS, 0, 0, BATCH_STEPS * (1 + refine3) * k3_panel, 0,
-                  BATCH_STEPS * (1 + refine3)],
+                  *spmm_launches(st3, BATCH_STEPS, False)],
         "multifrontal": [BATCH_STEPS, BATCH_STEPS * per_step_mf * k2_per,
-                         BATCH_STEPS * per_step_mf * p1_per, 0, 0, BATCH_STEPS * per_step_mf],
+                         BATCH_STEPS * per_step_mf * p1_per, 0, 0,
+                         *spmm_launches(st2, BATCH_STEPS, False)],
     }
     for name, r in (("block", closed_blk), ("multifrontal", closed_mf)):
-        log(f"phase 14 ({name}): launches K1/K2/P1/K3/F/S {r['launches']} "
+        log(f"phase 14 ({name}): launches K1/K2/P1/K3/F/S/R {r['launches']} "
             f"(expected {expected_closed[name]})")
         if r["launches"] != expected_closed[name]:
             raise AssertionError(f"batched closed loop ({name}) launches {r['launches']}")
     k3_batched_launches = open_blk["launches"][3] + closed_blk["launches"][3]
-    s_launches = sum(r["launches"][5] for r in (open_blk, open_mf, closed_blk, closed_mf))
-    spmm = phase_spmm(st2, "phase 14s")
+    s_launches = [sum(r["launches"][k] for r in (open_blk, open_mf, closed_blk, closed_mf))
+                  for k in (5, 6)]
+    spmm = {BATCH: phase_spmm(st2, "phase 14s", BATCH)}
     # the batched rollouts as graphs against eager, from the open loops' carries
     k_mats = controller_population(st2, fs2.params_time.dt)[2]
     for name, stp, r in (("multifrontal", st2, open_mf), ("block", st3, open_blk)):
@@ -1556,7 +1685,7 @@ def main() -> int:
     mfc = stc._solvers[oic]
     refine_c = stc._refine.get(oic, 0)
     solves_c = (1 + stc.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + refine_c)
-    expected = [NUM_STEPS + 1, 0, 0, 0, solves_c, 0]
+    expected = [NUM_STEPS + 1, 0, 0, 0, solves_c, 0, 0]
     t = mfc.timings
     log(f"phase 17: cavity Re={CAV_RE}: mesh {fc.mesh.num_cells} cells, {fc.space.n_dofs} dofs "
         f"({fc.space.n_vel_dofs} velocity + {fc.space.n_pressure_dofs} pressure); mesh+spaces "
@@ -1576,7 +1705,7 @@ def main() -> int:
     log(f"phase 17: {NUM_STEPS} steps (u = [{CAV_U}] for {CTRL_STEPS}, then 0), single-stream "
         f"{cav['sps']:.2f} steps/s over the last {NUM_STEPS - CTRL_STEPS} ({card}); y[-1] = "
         f"{cav['ys'][-1].tolist()}, dE[-1] = {cav['de'][-1]:.6e}")
-    log(f"phase 17: launches K1/K2/P1/K3/F/S {cav['launches']} (expected {expected}: {solves_c} "
+    log(f"phase 17: launches K1/K2/P1/K3/F/S/R {cav['launches']} (expected {expected}: {solves_c} "
         f"solves, each one launch of F)")
     if (stc._solver_kinds != ["borrowed", "multifrontal"] or fc.params_solver.stepper_options
             or not mfc.takes_fused(1)):
@@ -1599,9 +1728,9 @@ def main() -> int:
     open_c = phase_batched_open(stc, up_c, counters, "phase 20", batch=CAV_BATCH, u_dir=(1.0,))
     k2c, p1c = mfc.launches_per_solve()
     solves_bc = (1 + stc.BORROW_ITERS) + (BATCH_STEPS - 1) * (1 + refine_c)
-    s_c = 1 + (stc.BORROW_ITERS + 1) + (BATCH_STEPS - 1) * (1 + refine_c)
-    expected = [BATCH_STEPS + 1, solves_bc * k2c, solves_bc * p1c, 0, 0, s_c]
-    log(f"phase 20: launches K1/K2/P1/K3/F/S {open_c['launches']} (expected {expected}: "
+    expected = [BATCH_STEPS + 1, solves_bc * k2c, solves_bc * p1c, 0, 0,
+                *spmm_launches(stc, BATCH_STEPS, True)]
+    log(f"phase 20: launches K1/K2/P1/K3/F/S/R {open_c['launches']} (expected {expected}: "
         f"{solves_bc} solves x {k2c} K2 and {p1c} P1)")
     if open_c["launches"] != expected or mfc.takes_fused(CAV_BATCH):
         raise AssertionError(f"cavity batched launches {open_c['launches']}, expected {expected}")
@@ -1614,7 +1743,8 @@ def main() -> int:
     del carry_c
     graphs[f"cavity multifrontal B={CAV_BATCH} open"] = phase_graph_rollout(
         stc, open_c["carry"], "multifrontal", "phase 20g")
-    s_launches += open_c["launches"][5]
+    s_launches = [s_launches[0] + open_c["launches"][5], s_launches[1] + open_c["launches"][6]]
+    spmm[CAV_BATCH] = phase_spmm(stc, "phase 20s", CAV_BATCH)
     k2_wide[CAV_BATCH] = phase_k2_wide(mfc, CAV_BATCH, "phase 20")
     k1_cav = phase_kernel(fc.space, fc.geom, dev, widths=(CAV_BATCH,), tag="phase 20")
 
@@ -1697,13 +1827,23 @@ def main() -> int:
         row("P4 dynamic_offset_accum_store", src + "mf_fused.cu", probe_src + ":89",
             f_launches, probes["P4"], probes["P4"]["library_ms"], launched_inside="F"),
         # S replaces no Pallas kernel: it stands for the JAX stepper's XLA
-        # operator applies; its row is the mass at B = BATCH (f32), with the
-        # f64 refinement operator's numbers beside it
+        # operator applies. Its rows: the mass at B = BATCH (f32, with the
+        # f64 operator's numbers beside it) and the fused residual at
+        # B = BATCH, each with the cavity's at B = CAV_BATCH
         row(f"S csr_matmul B={BATCH} mass f32", src + "csr_spmm.cu",
-            "flowcontrol_tpu/core/stepper.py:885", s_launches, spmm["f32"],
-            spmm["f32"]["library_ms"],
-            **{f"f64_{k}": spmm["f64"][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                     "library_ms", "bound_ms", "bound_by")}),
+            "flowcontrol_tpu/core/stepper.py:885", s_launches[0], spmm[BATCH]["f32"],
+            spmm[BATCH]["f32"]["library_ms"], rowwise_ms=spmm[BATCH]["f32"]["rowwise_ms"],
+            **{f"f64_{k}": spmm[BATCH]["f64"][k] for k in (
+                "max_abs_err", "ms", "rowwise_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")},
+            **{f"cavity_B{CAV_BATCH}_{k}": spmm[CAV_BATCH]["f32"][k] for k in (
+                "ms", "rowwise_ms", "plain_ms", "library_ms", "bound_ms")}),
+        row(f"S csr_residual B={BATCH}", src + "csr_spmm.cu",
+            "flowcontrol_tpu/core/stepper.py:885", s_launches[1], spmm[BATCH]["residual"], None,
+            composition_ms=spmm[BATCH]["residual"]["composition_ms"],
+            composition_rowwise_ms=spmm[BATCH]["residual"]["composition_rowwise_ms"],
+            **{f"cavity_B{CAV_BATCH}_{k}": spmm[CAV_BATCH]["residual"][k] for k in (
+                "ms", "composition_ms", "composition_rowwise_ms", "plain_ms", "bound_ms")}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -56,7 +56,7 @@ from flowcontrol_tpu_torch.core.graphs import Program
 from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
 from flowcontrol_tpu_torch.fem.bc import BCSet
 from flowcontrol_tpu_torch.ops.nl import NLTables, nonlinear_convection
-from flowcontrol_tpu_torch.ops.spmm import csr_matmul
+from flowcontrol_tpu_torch.ops.spmm import attach_plan, csr_matmul, csr_residual
 from flowcontrol_tpu_torch.parallel.dofsharding import mixed_dof_coordinates
 from flowcontrol_tpu_torch.solvers.block_lu import BlockLU
 from flowcontrol_tpu_torch.solvers.direct import DeviceDenseLU, HostSparseLU
@@ -110,19 +110,27 @@ def carry_to_numpy(carry: StepCarry) -> dict:
 
 
 def csr_to_device(a_csr, device, dtype) -> torch.Tensor:
-    """scipy CSR -> torch sparse CSR on ``device`` (cuSPARSE SpMV on CUDA)."""
-    a = a_csr.tocsr()
+    """scipy CSR -> torch sparse CSR on ``device`` (cuSPARSE SpMV on CUDA),
+    its stored zeros dropped (the element assembly stores every entry of
+    the element tensors; an FMA with a stored 0 changes no sum's value).
+    On CUDA the matrix carries kernel S's tile plan (``ops/spmm.py``)."""
+    a = a_csr.tocsr(copy=True)
+    a.eliminate_zeros()
+    device = torch.device(device)
     with warnings.catch_warnings():
         # torch flags sparse CSR as beta and notes its invariant checks;
         # the checks are on here (one-time, at build)
         warnings.filterwarnings("ignore", message="Sparse (CSR tensor support|invariant checks)")
-        return torch.sparse_csr_tensor(
+        t = torch.sparse_csr_tensor(
             torch.as_tensor(a.indptr.astype(np.int64), device=device),
             torch.as_tensor(a.indices.astype(np.int64), device=device),
             torch.as_tensor(a.data, dtype=dtype, device=device),
             size=a.shape,
             check_invariants=True,
         )
+    if device.type == "cuda":
+        attach_plan(t, a.indptr, a.indices)
+    return t
 
 
 def sparse_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -133,6 +141,18 @@ def sparse_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return torch.mv(a, x)
     flat = x.reshape(-1, x.shape[-1])
     return csr_matmul(a, flat).reshape(x.shape[:-1] + (a.shape[0],))
+
+
+def sparse_residual(a64: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``(b.double() - a64 @ x.double()).to(b.dtype)`` over the last
+    dimension: the composition for one vector, S's fused residual
+    (``ops/spmm.py`` ``csr_residual``, the same bits in one launch) for a
+    batch."""
+    if x.dim() == 1:
+        return (b.double() - torch.mv(a64, x.double())).to(b.dtype)
+    n = x.shape[-1]
+    r = csr_residual(a64, b.reshape(-1, a64.shape[0]), x.reshape(-1, n))
+    return r.reshape(b.shape)
 
 
 def dense_lu_max_dofs_device(device) -> int:
@@ -370,10 +390,13 @@ class Stepper:
         sweeps = self._refine.get(oi, 0)
         if sweeps:
             # mixed-precision refinement: residual and update in f64, the
-            # correction solved with the f32 factor
-            a64, b64, x64 = self._dev["a_refine"][oi], rhs.double(), x.double()
-            for _ in range(sweeps):
-                r = (b64 - sparse_matvec(a64, x64)).to(self.dtype)
+            # correction solved with the f32 factor; the first sweep's
+            # residual is taken from the f32 x and rhs (x64 is x.double()
+            # there), fused for a batch
+            a64 = self._dev["a_refine"][oi]
+            x64 = x.double() + self._solve_once(oi, sparse_residual(a64, rhs, x)).double()
+            for _ in range(sweeps - 1):
+                r = (rhs.double() - sparse_matvec(a64, x64)).to(self.dtype)
                 x64 = x64 + self._solve_once(oi, r).double()
             x = x64.to(self.dtype)
         return x

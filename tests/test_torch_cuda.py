@@ -51,7 +51,15 @@ package, so it also runs on a GPU machine without them:
   against its plain version (cuSPARSE's product) on the coarse cylinder's
   mass matrix, f32 and f64, batch 1, 3, 64 and 256: relative error <= 1e-5
   (f32) or 1e-12 (f64), two calls bitwise equal, one counted launch per
-  call.
+  call. The tiled kernel ``torch.equal`` to the row-wise reference kernel
+  (the order it keeps), f32 and f64, batch 2, 3, 33, 64 and 256, on the
+  coarse cylinder's mass and BDF2 operator and on matrices whose dense row
+  forces a tile to be cut (or, past the column budget, takes a tile of its
+  own), through a row-major and a column-major x; one
+  counted launch per call and, in a profiler window of one call, one
+  kernel and no copy. ``csr_residual`` ``torch.equal`` to its composition
+  ``(b.double() - csr_matmul(a, x.double())).to(float32)`` on the same
+  matrices and widths, one counted launch per call.
 - The compiled entry points as CUDA graphs, on every path (dense,
   multifrontal through F at B = 1 and through K2/P1 at B = 256, block
   through K3 at B = 1 and 256, the cavity's multifrontal at B = 1 and 64):
@@ -87,6 +95,7 @@ from flowcontrol_tpu_torch.ops.nl import (
     nonlinear_convection_patches_plain,
     nonlinear_convection_plain,
 )
+from flowcontrol_tpu_torch.ops.spmm import csr_matmul, csr_residual
 from flowcontrol_tpu_torch.ops.trisolve import (
     block_lu_solve_fused,
     block_lu_solve_scheduled_plain,
@@ -460,6 +469,124 @@ def test_torch_cuda_s_matches_plain(cuda, dtype, batch):
         csr_matmul(a, x.to(torch.float16))
 
 
+@pytest.fixture(scope="module")
+def s_matrices():
+    """S's test matrices (scipy CSR): the coarse cylinder's mass and BDF2
+    operator (a seeded base flow), and random 1,000 x 3,000 matrices, ~8
+    nonzeros a row, whose row 300 holds 100 distinct columns ("split": its
+    tile overflows the plan's column budget and is cut) or 200
+    ("split_alone": past the budget, the row takes a tile of its own)."""
+    import scipy.sparse as sp
+
+    fs = CylinderFlowSolver.make_default(mesh=cylinder_mesh(**COARSE), device="cpu")
+    space = fs.space
+    u0 = np.random.default_rng(0).standard_normal((space.n_vnodes, 2))
+
+    def split(dense):
+        rng = np.random.default_rng(1)
+        a = sp.random(1000, 3000, density=8 / 3000, format="lil", random_state=rng)
+        a[300, rng.choice(3000, dense, replace=False)] = rng.standard_normal(dense)
+        a = a.tocsr()
+        a.sort_indices()
+        return a
+
+    return {"mass": to_scipy_csr(fs.forms.mass_elements(), space.cell_dofs, space.n_dofs),
+            "operator": to_scipy_csr(fs.forms.transient_lhs(2, u0), space.cell_dofs,
+                                     space.n_dofs),
+            "split": split(100), "split_alone": split(200)}
+
+
+def _s_matrix(s_matrices, which, device, dtype):
+    """One of S's test matrices on the card with its plan; "split_alone"'s
+    dense row holds a tile of its own, past the column budget."""
+    from flowcontrol_tpu_torch.core.stepper import csr_to_device
+    from flowcontrol_tpu_torch.ops.spmm import TILE_COLS
+
+    a = csr_to_device(s_matrices[which], device, dtype)
+    if which == "split_alone":
+        row0 = a.spmm_plan.tile_row0.cpu().tolist()
+        assert 300 in row0 and row0[row0.index(300) + 1] == 301
+        assert a.spmm_plan.max_cols > TILE_COLS
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 3, 33, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("which", ["mass", "operator", "split", "split_alone"])
+def test_torch_cuda_s_matches_rowwise(cuda, s_matrices, which, dtype, batch):
+    """The tiled S against the earlier row-wise kernel, the order it keeps:
+    torch.equal, through a row-major and a column-major x; two calls
+    bitwise equal; one counted launch per call; within 1e-5 (f32) or 1e-12
+    (f64) of cuSPARSE's product."""
+    from flowcontrol_tpu_torch.ops.spmm import csr_matmul_plain, csr_matmul_rowwise
+
+    a = _s_matrix(s_matrices, which, cuda, dtype)
+    if which == "split":
+        rows = torch.diff(a.spmm_plan.tile_row0).cpu()
+        assert bool((rows[:-1] < 64).any())  # the dense row's tile was cut
+    x = torch.as_tensor(np.random.default_rng(batch).standard_normal((batch, a.shape[1])),
+                        dtype=dtype, device=cuda)
+    x_cm = x.T.contiguous().T  # column-major: strides (1, batch)
+    before = csr_matmul.launches
+    got, again, got_cm = csr_matmul(a, x), csr_matmul(a, x), csr_matmul(a, x_cm)
+    ref, plain = csr_matmul_rowwise(a, x), csr_matmul_plain(a, x)
+    torch.cuda.synchronize()
+    assert csr_matmul.launches == before + 3
+    assert got.shape == (batch, a.shape[0]) and got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, ref) and torch.equal(got, again) and torch.equal(got_cm, ref)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((got - plain).abs().max() / plain.abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 3, 33, 64, 256])
+@pytest.mark.parametrize("which", ["mass", "operator", "split", "split_alone"])
+def test_torch_cuda_s_residual_matches_composition(cuda, s_matrices, which, batch):
+    """csr_residual in one launch against the composition it fuses:
+    torch.equal, with x and b row-major and column-major; f32 operands
+    refused for the matrix."""
+    a = _s_matrix(s_matrices, which, cuda, torch.float64)
+    rng = np.random.default_rng(batch)
+    x = torch.as_tensor(rng.standard_normal((batch, a.shape[1])), dtype=torch.float32,
+                        device=cuda)
+    b = torch.as_tensor(rng.standard_normal((batch, a.shape[0])), dtype=torch.float32,
+                        device=cuda)
+    before = csr_residual.launches
+    got = csr_residual(a, b, x)
+    got_cm = csr_residual(a, b.T.contiguous().T, x.T.contiguous().T)
+    want = (b.double() - csr_matmul(a, x.double())).to(torch.float32)
+    torch.cuda.synchronize()
+    assert csr_residual.launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, want) and torch.equal(got_cm, want)
+    with pytest.raises(TypeError):
+        csr_residual(a.to(torch.float32), b, x)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_s_one_kernel_no_copy(cuda, s_matrices):
+    """A profiler window of one S call (the mass at B = 256) and one
+    residual holds one kernel each and no copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flowcontrol_tpu_torch.core.stepper import csr_to_device
+
+    m = csr_to_device(s_matrices["mass"], cuda, torch.float32)
+    a = csr_to_device(s_matrices["operator"], cuda, torch.float64)
+    x = torch.randn((256, m.shape[1]), device=cuda)
+    b = torch.randn((256, a.shape[0]), device=cuda)
+    for call in (lambda: csr_matmul(m, x), lambda: csr_residual(a, b, x)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        names = [e.name for e in kernels]
+        assert len(kernels) == 1 and "csr_spmm_tiled_kernel" in names[0], names
+        assert not any("copy" in n.lower() or "memcpy" in n.lower() for n in names), names
+
+
 # ── The compiled entry points as CUDA graphs ─────────────────────────────────
 
 # (flow, solve path, batch): every path's captured step on the reference's
@@ -479,7 +606,8 @@ def _graph_kernels(path, batch):
     solve = {"dense": set(), "block": {block_lu_solve_fused},
              "multifrontal": ({mf_fused.multifrontal_solve_fused} if batch <= 8
                               else {stack_matvec, gather_sum_sub})}[path]
-    return {nonlinear_convection} | solve
+    spmm = {csr_matmul, csr_residual} if batch > 1 else set()  # the mass, the residual
+    return {nonlinear_convection} | solve | spmm
 
 
 def _graph_case(pin_base_flows, name, path, batch, tmp_path, monkeypatch):

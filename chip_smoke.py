@@ -42,16 +42,25 @@ fails or no CUDA device is present:
    borrowed sweeps on step 1, then one per step, doubled by the refinement
    sweep every f32 factor takes; none in ``init_carry``), K2 and P1
    never;
-7. K2 and P1 against their plain versions on that factor's stacks and inbox
-   tables, every stage, batch 1 (the main path's) and 4: max |kernel -
-   plain| / max |plain| <= 1e-5. Kernel, plain and (for K2) ``torch.bmm``
-   timed over the launches of one solve: device time from torch.profiler
-   (the host dispatches a small launch slower than the card runs it, so a
-   CUDA-event span measures the host; it is logged too). Then K2's wide
-   instance (the tiled product) at B = 256, the cylinder's batched width,
-   on every stage: against plain (<= 1e-5), two calls bitwise equal, one
-   counted launch per call; kernel, plain and ``torch.bmm`` per solve
-   beside the FMA bound;
+7. K2 against its plain version on that factor's stacks, every stage,
+   batch 1 and 4: max |kernel - plain| / max |plain| <= 1e-5. Kernel, plain
+   and ``torch.bmm`` timed over the launches of one solve: device time from
+   torch.profiler (the host dispatches a small launch slower than the card
+   runs it, so a CUDA-event span measures the host; it is logged too). Then
+   K2's wide instance (the tiled product) at B = 256, the cylinder's
+   batched width, on every stage: against plain (<= 1e-5), two calls
+   bitwise equal, one counted launch per call; kernel, plain and
+   ``torch.bmm`` per solve beside the FMA bound. Then P1 at B = 256 on that
+   factor's tables: each stage's inbox launch ``torch.equal`` to the earlier
+   per-segment kernel and within 1e-5 of plain, the gather form (entry and
+   exit permutations, every boundary) ``torch.equal`` to ``index_select``
+   and to plain, one counted launch per call; one solve's worth of each
+   piece of the sweep outside K2, timed by queued CUDA events, as the sweep
+   makes it (P1's launches, the subtractions, the buffer's zero column) and
+   as it made it before P1 took every gather (one P1 per inbox segment,
+   torch's int64 index kernels, the padded entry, the zeroed buffer, the
+   copy of z), ``index_select`` for the gather form, P1's plain version and
+   its byte bound;
 8. accuracy: from the multifrontal carry after step 10, 10 more f32 steps
    against the host float64 loop of phase 4: relative field error <= 5e-4;
 9. where the multifrontal step's time goes: a torch.profiler trace of 10
@@ -76,7 +85,9 @@ fails or no CUDA device is present:
 12. accuracy: from the block path's carry after step 10, 10 more f32 steps
     against the host float64 loop: relative field error <= 5e-4;
 13. batched open loop on the block and the multifrontal path (the
-    per-stage sweep: K2 and P1, F never): 256 copies
+    per-stage sweep: K2 and P1, F never; P1 once per stage with an inbox,
+    once per stage for the boundary gather and once each for the entry and
+    exit permutations): 256 copies
     of the state with distinct controls, 20 steps of
     ``rollout_open_loop``: aggregate steps/s over the 19 BDF2 steps, every
     member finite, exact launch counts, and y of members 0 and 255 within
@@ -126,8 +137,9 @@ fails or no CUDA device is present:
     never, exact counts); aggregate steps/s over the 19 BDF2 steps; y of
     members 0 and 63 within 1e-4 of its peak against single-stream runs
     (which go through F); where one such ``Stepper.step`` goes
-    (torch.profiler, 3 steps); K2's wide instance at B = 64 on the cavity's
-    stages, as in phase 7, and K1 at B = 64 on the cavity mesh;
+    (torch.profiler, 3 steps); K2's wide instance and P1 at B = 64 on the
+    cavity's stages and tables, as in phase 7, and K1 at B = 64 on the
+    cavity mesh;
 21. where the cavity step's time goes, and the cylinder multifrontal step's
     with F and through the per-stage sweep: torch.profiler over 10 eager
     ``Stepper.step`` calls each (a CUDA graph keeps the route it was
@@ -166,7 +178,8 @@ count.
 
 The line before the last is a JSON object describing each kernel (K1 at
 batch 1, 256 and 64; K2 at batch 1, 256 and 64; K3 at batch 1 and at
-batch 256; P1; F at the cylinder's and the cavity's factor; P2, P3, P4;
+batch 256; P1 at batch 256 and 64; F at the cylinder's and the cavity's
+factor; P2, P3, P4;
 S's csr_matmul at batch 256, f32, with its f64 and cavity numbers beside
 them, and S's csr_residual at batch 256 with the cavity's beside):
 its launches on its main path (K1's and K2's batched rows: their launches
@@ -177,8 +190,9 @@ work of one main-path call (K1, F, P2, P3, P4), of one solve's launches
 (K2, P1) or of one solve (K3), from this run's shapes: the bytes each call
 must move at 3.35 TB/s or its operations at the 67 TFLOP/s f32 rate,
 whichever is larger. F's rows also carry ``sweep_ms``, the per-stage
-sweep's device time for the same solve. The last line is
-``{"ok": true, "device": {...}}``.
+sweep's device time for the same solve; P1's rows the parts and the
+earlier route's times of phase 7's and 20's P1 readings (``P1_EXTRA``).
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -208,6 +222,9 @@ BATCH = 256
 BATCH_STEPS = 20
 MEMBER_TOL = 1e-4  # a batch member against its single-stream run (f32, another summation order)
 FIELD_ERR_TOL = 5e-4
+# P1's numbers beside the kernels line's keys (phase_p1)
+P1_EXTRA = ("inbox_ms", "segment_kernel_ms", "gather_ms", "torch_index_ms", "glue_ms",
+            "glue_before_ms", "launches_per_solve")
 # the H100's published peaks (SXM, 700 W): memory rate and f32 outside the
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -535,15 +552,10 @@ def accuracy(host, st, carry10, tag: str) -> float:
 
 
 def phase_mf_kernels(mf) -> dict:
-    """K2 and P1 against their plain versions on every stage of ``mf``;
-    device times of the launches of one solve (batch 1), each stage's
-    operands in turn."""
-    from flowcontrol_tpu_torch.ops.mf_matvec import (
-        gather_sum_sub,
-        gather_sum_sub_plain,
-        stack_matvec,
-        stack_matvec_plain,
-    )
+    """K2 against its plain version on every stage of ``mf``; device times
+    of the launches of one solve (batch 1), each stage's operands in
+    turn."""
+    from flowcontrol_tpu_torch.ops.mf_matvec import stack_matvec, stack_matvec_plain
 
     dev = mf.device
     rng = np.random.default_rng(1)
@@ -551,12 +563,8 @@ def phase_mf_kernels(mf) -> dict:
     def rand(*shape):
         return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
 
-    k2 = dict(max_rel=0.0, max_abs_err=0.0, bytes=0.0, flops=0.0, launches=0)
-    p1 = dict(max_rel=0.0, max_abs_err=0.0, bytes=0.0, flops=0.0, launches=0)
-    calls = {k: [] for k in ("k2", "k2_plain", "k2_bmm", "p1", "p1_plain")}
-    buf = {b: rand(b, 1 + mf.total_contrib) for b in (1, 4)}
-    for b in buf.values():
-        b[:, 0] = 0.0
+    r = dict(max_rel=0.0, max_abs_err=0.0, bytes=0.0, flops=0.0, launches=0)
+    calls = {k: [] for k in ("k2", "k2_plain", "k2_bmm")}
     last = len(mf.stages) - 1
     for si, st in enumerate(mf.stages):
         ops = [(st.inv, st.e)] + ([(st.fbi, st.e)] if si < last else []) + [(st.ginv, st.b)]
@@ -565,50 +573,178 @@ def phase_mf_kernels(mf) -> dict:
             for batch in (1, 4):
                 v = rand(batch, m, q)
                 rel, abs_err = rel_err(stack_matvec(a, v), stack_matvec_plain(a, v))
-                k2["max_rel"] = max(k2["max_rel"], rel)
-                k2["max_abs_err"] = max(k2["max_abs_err"], abs_err)
+                r["max_rel"] = max(r["max_rel"], rel)
+                r["max_abs_err"] = max(r["max_abs_err"], abs_err)
             v = rand(1, m, q)
             vcol = v[0].unsqueeze(-1).contiguous()
             calls["k2"].append(lambda a=a, v=v: stack_matvec(a, v))
             calls["k2_plain"].append(lambda a=a, v=v: stack_matvec_plain(a, v))
             calls["k2_bmm"].append(lambda a=a, vcol=vcol: torch.bmm(a, vcol))
-            k2["bytes"] += a.nbytes + 4 * (m * q + m * p)
-            k2["flops"] += 2 * m * p * q
-            k2["launches"] += 1
-        for t in st.inbox:
-            kmax, w = t.shape
-            for batch in (1, 4):
-                xe = rand(batch, w)
-                rel, abs_err = rel_err(gather_sum_sub(buf[batch], t, xe),
-                                       gather_sum_sub_plain(buf[batch], t, xe))
-                p1["max_rel"] = max(p1["max_rel"], rel)
-                p1["max_abs_err"] = max(p1["max_abs_err"], abs_err)
-            xe = rand(1, w)
-            calls["p1"].append(lambda t=t, xe=xe: gather_sum_sub(buf[1], t, xe))
-            calls["p1_plain"].append(lambda t=t, xe=xe: gather_sum_sub_plain(buf[1], t, xe))
-            # the table, xe and out once each, and every buffer entry the
-            # table really references (pads read the shared zero)
-            used = int(torch.unique(t[t > 0]).numel())
-            p1["bytes"] += t.nbytes + 4 * (2 * w + used)
-            p1["flops"] += kmax * w + w
-            p1["launches"] += 1
-    k2["ms"], k2["plain_ms"] = device_ms(calls["k2"]), device_ms(calls["k2_plain"])
-    k2["library_ms"] = device_ms(calls["k2_bmm"])
-    p1["ms"], p1["plain_ms"] = device_ms(calls["p1"]), device_ms(calls["p1_plain"])
-    k2["span_ms"] = cuda_time_ms(lambda: [f() for f in calls["k2"]], reps=20)
-    p1["span_ms"] = cuda_time_ms(lambda: [f() for f in calls["p1"]], reps=20)
-    for name, r in (("K2", k2), ("P1", p1)):
-        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"])
-        lib = f", torch.bmm {r['library_ms']:.4f} ms" if "library_ms" in r else ""
-        log(f"phase 7: {name} over {r['launches']} launches of one solve, {len(mf.stages)} stages: "
-            f"max|k-p|/max|p| = {r['max_rel']:.3e} (tol {MF_TOL:g}, B=1 and 4), "
-            f"max|k-p| = {r['max_abs_err']:.3e}; B=1 device time per solve: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}, {r['bytes'] / 1e9:.4f} GB); CUDA-event span of the kernel "
-            f"launches {r['span_ms']:.4f} ms (with the host's dispatch gaps)")
-        if not r["max_rel"] <= MF_TOL:
-            raise AssertionError(f"{name} disagrees with its plain version: {r['max_rel']:.3e}")
-    return {"K2": k2, "P1": p1}
+            r["bytes"] += a.nbytes + 4 * (m * q + m * p)
+            r["flops"] += 2 * m * p * q
+            r["launches"] += 1
+    r["ms"], r["plain_ms"] = device_ms(calls["k2"]), device_ms(calls["k2_plain"])
+    r["library_ms"] = device_ms(calls["k2_bmm"])
+    r["span_ms"] = cuda_time_ms(lambda: [f() for f in calls["k2"]], reps=20)
+    r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"])
+    log(f"phase 7: K2 over {r['launches']} launches of one solve, {len(mf.stages)} stages: "
+        f"max|k-p|/max|p| = {r['max_rel']:.3e} (tol {MF_TOL:g}, B=1 and 4), "
+        f"max|k-p| = {r['max_abs_err']:.3e}; B=1 device time per solve: kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.bmm {r['library_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.4f} GB); CUDA-event "
+        f"span of the kernel launches {r['span_ms']:.4f} ms (with the host's dispatch gaps)")
+    if not r["max_rel"] <= MF_TOL:
+        raise AssertionError(f"K2 disagrees with its plain version: {r['max_rel']:.3e}")
+    return r
+
+
+def phase_p1(mf, batch: int, solves_per_step: int, tag: str) -> dict:
+    """P1 at the batched sweep's width ``batch`` on ``mf``'s tables. Each
+    stage's inbox launch torch.equal to the earlier per-segment kernel
+    (``gather_sum_sub``) and within MF_TOL of the plain version; the gather
+    form (entry and exit permutations, every boundary) torch.equal to
+    ``torch.index_select`` on the same int32 tables and to the plain
+    version; one counted launch per call. Then one solve's worth of each
+    piece of the sweep outside K2, timed by queued CUDA events: P1's
+    launches (inbox, boundary, entry, exit), the subtractions and the
+    buffer's zero column; the same pieces as the sweep made them before P1
+    took every gather (one P1 per inbox segment, torch's int64 index
+    kernels, the padded entry, the zeroed buffer, the copy of z); the
+    library's ``index_select`` for the gather form; P1's plain version;
+    P1's bound (bytes at 3.35 TB/s: the tables, xe and out once, the src
+    entries the tables really reference once)."""
+    from flowcontrol_tpu_torch.ops.mf_matvec import gather_sum_sub, sweep_gather, sweep_gather_plain
+
+    dev, n, xs, total = mf.device, mf.n, mf.work_slots, mf.total_slots
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    bb, x, z, y = rand(batch, n), rand(batch, xs), rand(batch, xs), rand(batch, xs)
+    buf = rand(batch, 1 + mf.total_contrib)
+    buf[:, 0] = 0.0
+    stages = mf.stages
+    inbox = [st for st in stages if st.p1_inbox is not None]
+
+    def sl(st):
+        return slice(st.off, st.off + st.m * st.e)
+
+    # the inbox form: one launch a stage against the per-segment kernel and plain
+    r = dict(max_abs_err=0.0, max_rel=0.0)
+    got, want = x.clone(), x.clone()
+    launches0 = sweep_gather.launches
+    for st in inbox:
+        xe = got[:, sl(st)]
+        sweep_gather(st.p1_inbox, buf, xe=xe, out=xe)
+        for i, (o, w, _, _) in enumerate(st.p1_inbox.segs):
+            seg = want[:, st.off + o: st.off + o + w]
+            gather_sum_sub(buf, st.inbox[i], seg, out=seg)
+        plain = sweep_gather_plain(st.p1_inbox, buf, xe=x[:, sl(st)])
+        rel, abs_err = rel_err(got[:, sl(st)], plain)
+        r["max_rel"], r["max_abs_err"] = max(r["max_rel"], rel), max(r["max_abs_err"], abs_err)
+    torch.cuda.synchronize()
+    same_seg = torch.equal(got, want)
+    counted_ok = sweep_gather.launches - launches0 == len(inbox)
+    # the gather form against index_select (int32 tables) and plain
+    bb_pad = torch.nn.functional.pad(bb, (0, 1))
+    gathers = [(mf.p1_entry, bb, bb_pad, mf.perm32), (mf.p1_exit, x, x, mf.ipos32)] + [
+        (st.p1_bd, x, x, st.bd32.reshape(-1)) for st in stages]
+    same_lib = same_plain = True
+    for plan, src, lib_src, idx in gathers:
+        g = sweep_gather(plan, src)
+        same_lib &= torch.equal(g, torch.index_select(lib_src, 1, idx))
+        same_plain &= torch.equal(g, sweep_gather_plain(plan, src))
+    torch.cuda.synchronize()
+    log(f"{tag}: P1 B={batch}: {len(inbox)} inbox launches (of {sum(len(s.inbox) for s in stages)} "
+        f"segments) torch.equal to the per-segment kernel: {same_seg}; against plain "
+        f"max|k-p|/max|p| = {r['max_rel']:.3e} (tol {MF_TOL:g}), max|k-p| = {r['max_abs_err']:.3e}; "
+        f"{len(gathers)} gather-form launches torch.equal to index_select: {same_lib}, to plain: "
+        f"{same_plain}; one counted launch per call: {counted_ok}")
+    if not (same_seg and same_lib and same_plain and counted_ok and r["max_rel"] <= MF_TOL):
+        raise AssertionError(f"{tag}: P1 B={batch}: per-segment {same_seg}, index_select "
+                             f"{same_lib}, plain {same_plain} ({r['max_rel']:.3e}), counts "
+                             f"{counted_ok}")
+    del got, want
+
+    corr = {id(st): rand(batch, st.m * st.e) for st in stages}
+    perm64 = torch.nn.functional.pad(mf.perm, (0, xs - total - 1), value=n)
+    after = {
+        "P1 inbox": lambda: [sweep_gather(st.p1_inbox, buf, xe=x[:, sl(st)], out=y[:, sl(st)])
+                             for st in inbox],
+        "P1 boundary": lambda: [sweep_gather(st.p1_bd, x) for st in stages],
+        "P1 entry": lambda: sweep_gather(mf.p1_entry, bb, out=y),
+        "P1 exit": lambda: sweep_gather(mf.p1_exit, x),
+        "subtraction": lambda: [torch.sub(z[:, sl(st)], corr[id(st)], out=y[:, sl(st)])
+                                for st in stages],
+        "zero column": lambda: buf[:, :1].zero_(),
+    }
+    before = {
+        "P1 per segment": lambda: [gather_sum_sub(buf, t, x[:, st.off + o: st.off + o + w],
+                                                  out=y[:, st.off + o: st.off + o + w])
+                                   for st in inbox
+                                   for t, (o, w, _, _) in zip(st.inbox, st.p1_inbox.segs)],
+        "boundary index": lambda: [x[:, st.bd.reshape(-1)] for st in stages],
+        "entry pad + index": lambda: torch.nn.functional.pad(bb, (0, 1))[:, perm64],
+        "exit index": lambda: x[:, mf.ipos],
+        "copy of z": lambda: [y[:, sl(st)].copy_(corr[id(st)]) for st in stages],
+        "subtraction": lambda: [y[:, sl(st)].sub_(corr[id(st)]) for st in stages],
+        "zeroed buffer": lambda: torch.zeros((batch, 1 + mf.total_contrib), device=dev),
+    }
+    library = {
+        "entry": lambda: torch.index_select(bb_pad, 1, mf.perm32),
+        "boundary": lambda: [torch.index_select(x, 1, st.bd32.reshape(-1)) for st in stages],
+        "exit": lambda: torch.index_select(x, 1, mf.ipos32),
+    }
+    # (plan, src columns) of every P1 launch of one solve
+    plans = ([(st.p1_inbox, buf.shape[1]) for st in inbox] + [(mf.p1_entry, n), (mf.p1_exit, xs)]
+             + [(st.p1_bd, xs) for st in stages])
+
+    def plain_all():
+        for st in inbox:
+            sweep_gather_plain(st.p1_inbox, buf, xe=x[:, sl(st)], out=y[:, sl(st)])
+        for plan, src in [(mf.p1_entry, bb), (mf.p1_exit, x)] + [(st.p1_bd, x) for st in stages]:
+            sweep_gather_plain(plan, src)
+
+    times = {k: {name: events_ms(fn, reps=10) for name, fn in d.items()}
+             for k, d in (("after", after), ("before", before), ("library", library))}
+    r["plain_ms"] = device_ms([plain_all], reps=3)
+    # bytes: each table once, xe (inbox) and out once, each src entry the
+    # tables reference once (the inbox's pads read position 0)
+    nbytes = flops = 0.0
+    for plan, cols in plans:
+        refs = 0
+        for i, (_, w, kmax, _) in enumerate(plan.segs):
+            t = plan.table(i)
+            refs += int(torch.unique(t[t < cols]).numel())
+            nbytes += t.nbytes + 4.0 * batch * w * (2 if plan.sub else 1)
+            flops += float(batch) * w * (kmax + 1) if plan.sub else 0.0
+        nbytes += 4.0 * batch * refs
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
+    p1_names = ("P1 inbox", "P1 boundary", "P1 entry", "P1 exit")
+    r["ms"] = sum(times["after"][k] for k in p1_names)
+    r["inbox_ms"] = times["after"]["P1 inbox"]
+    r["segment_kernel_ms"] = times["before"]["P1 per segment"]
+    r["gather_ms"] = sum(times["after"][k] for k in p1_names[1:])
+    r["torch_index_ms"] = sum(times["before"][k] for k in ("boundary index", "entry pad + index",
+                                                           "exit index"))
+    r["library_ms"] = sum(times["library"].values())
+    r["glue_ms"] = sum(times["after"].values())
+    r["glue_before_ms"] = sum(times["before"].values())
+    r["launches_per_solve"] = mf.launches_per_solve()[1]
+    r["times"] = times
+    for k in ("after", "before", "library"):
+        log(f"{tag}: B={batch} one solve, device ms (queued events), {k}: "
+            + ", ".join(f"{name} {ms:.4f}" for name, ms in times[k].items()))
+    log(f"{tag}: P1 B={batch} per solve ({r['launches_per_solve']} launches): {r['ms']:.4f} ms "
+        f"(inbox {r['inbox_ms']:.4f} against the per-segment kernel's {r['segment_kernel_ms']:.4f}; "
+        f"gather form {r['gather_ms']:.4f} against torch's int64 index {r['torch_index_ms']:.4f} "
+        f"and index_select {r['library_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e9:.4f} GB; {r['bound_ms'] / r['ms']:.3f} "
+        f"of it); the sweep outside K2 per solve {r['glue_before_ms']:.4f} -> {r['glue_ms']:.4f} ms, "
+        f"per step ({solves_per_step} solves) {solves_per_step * r['glue_before_ms']:.4f} -> "
+        f"{solves_per_step * r['glue_ms']:.4f} ms")
+    return r
 
 
 def phase_k2_wide(mf, batch: int, tag: str) -> dict:
@@ -1247,9 +1383,10 @@ def spmm_bound(a, batch: int, x_bytes: int, out_bytes: int) -> tuple[float, str,
 
 
 def spmm_plan_cost(st) -> tuple[int, int, float]:
-    """The tile plans the Stepper's device matrices carry: (count, device
-    bytes, host seconds to build them again from the matrices' host
-    arrays, the copies to the card included)."""
+    """The tile plans the Stepper's device matrices carry (each built on
+    the matrix's first batched product): (count, device bytes, host
+    seconds to build them again from the matrices' host arrays, the copies
+    to the card included)."""
     from flowcontrol_tpu_torch.ops.spmm import SpmmPlan
 
     mats = [st._dev["m"], st._dev.get("lvel")]
@@ -1289,6 +1426,7 @@ def phase_spmm(st, tag: str, batch: int) -> dict:
         csr_matmul_rowwise,
         csr_residual,
         csr_residual_plain,
+        plan_of,
     )
 
     space, oi = st.space, st._order_idx[2]
@@ -1299,7 +1437,7 @@ def phase_spmm(st, tag: str, batch: int) -> dict:
     gen = torch.Generator(device=st.device).manual_seed(3)
     out = {}
     for name, a in (("f32", st._dev["m"]), ("f64", st._dev["a_refine"][oi])):
-        n, plan = a.shape[1], a.spmm_plan
+        n, plan = a.shape[1], plan_of(a)
         x = torch.randn((batch, n), generator=gen, device=st.device).to(a.dtype)
         before = csr_matmul.launches
         got, again = csr_matmul(a, x), csr_matmul(a, x)
@@ -1402,7 +1540,7 @@ def main() -> int:
         fused_grid,
         multifrontal_solve_fused,
     )
-    from flowcontrol_tpu_torch.ops.mf_matvec import MF_KERNELS, gather_sum_sub, stack_matvec
+    from flowcontrol_tpu_torch.ops.mf_matvec import MF_KERNELS, stack_matvec, sweep_gather
     from flowcontrol_tpu_torch.ops.nl import NL_KERNEL, nonlinear_convection
     from flowcontrol_tpu_torch.ops.spmm import SPMM_KERNEL, csr_matmul, csr_residual
     from flowcontrol_tpu_torch.ops.trisolve import (
@@ -1462,7 +1600,7 @@ def main() -> int:
         raise AssertionError(f"cd0 {fs.cd0} differs from {CD0_REF} by {cd_rel:.2e}")
 
     fs.initialize_time_stepping()
-    counters = (nonlinear_convection, stack_matvec, gather_sum_sub, block_lu_solve_fused,
+    counters = (nonlinear_convection, stack_matvec, sweep_gather, block_lu_solve_fused,
                 multifrontal_solve_fused, csr_matmul, csr_residual)
     dense = run_path(fs, counters)
     st = dense["st"]
@@ -1538,9 +1676,11 @@ def main() -> int:
     if mfp["launches"] != expected:
         raise AssertionError(f"multifrontal path launches {mfp['launches']}, expected {expected}")
 
-    # ── phase 7: K2 and P1 against plain; K2 at the batched path's width ──────
-    mfk = phase_mf_kernels(mf)
+    # ── phase 7: K2 against plain; K2 and P1 at the batched path's width ──────
+    k2_narrow = phase_mf_kernels(mf)
     k2_wide = {BATCH: phase_k2_wide(mf, BATCH, "phase 7")}
+    solves_per_step2 = 1 + st2._refine.get(oi2, 0)
+    p1 = {BATCH: phase_p1(mf, BATCH, solves_per_step2, "phase 7")}
 
     # ── phase 8: accuracy against host f64 ───────────────────────────────────
     accuracy(host, st2, mfp["carry10"], "phase 8")
@@ -1746,6 +1886,7 @@ def main() -> int:
     s_launches = [s_launches[0] + open_c["launches"][5], s_launches[1] + open_c["launches"][6]]
     spmm[CAV_BATCH] = phase_spmm(stc, "phase 20s", CAV_BATCH)
     k2_wide[CAV_BATCH] = phase_k2_wide(mfc, CAV_BATCH, "phase 20")
+    p1[CAV_BATCH] = phase_p1(mfc, CAV_BATCH, 1 + refine_c, "phase 20")
     k1_cav = phase_kernel(fc.space, fc.geom, dev, widths=(CAV_BATCH,), tag="phase 20")
 
     # ── phase 21: where the cavity step goes; the cylinder's with F and without
@@ -1783,7 +1924,7 @@ def main() -> int:
     f_launches = mfp["launches"][4] + cav["launches"][4]
     k2_cyl_launches = open_mf["launches"][1] + closed_mf["launches"][1]
     k2_launches = k2_cyl_launches + open_c["launches"][1]
-    p1_launches = open_mf["launches"][2] + closed_mf["launches"][2] + open_c["launches"][2]
+    p1_cyl_launches = open_mf["launches"][2] + closed_mf["launches"][2]
     probe_src = "tools/pallas_gather_probe.py"
     log(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f} s wall")
     print(json.dumps({"kernels": [
@@ -1796,8 +1937,8 @@ def main() -> int:
             "flowcontrol_tpu/ops/pallas_nl.py:136", open_c["launches"][0],
             dict(max_abs_err=k1_cav["max_abs_err"], **k1_cav["widths"][CAV_BATCH]), None),
         row("K2 stack_matvec", src + "mf_sweep.cu",
-            "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", k2_launches, mfk["K2"],
-            mfk["K2"]["library_ms"]),
+            "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", k2_launches, k2_narrow,
+            k2_narrow["library_ms"]),
         row(f"K2 stack_matvec B={BATCH} cylinder", src + "mf_sweep.cu",
             "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", k2_cyl_launches, k2_wide[BATCH],
             k2_wide[BATCH]["library_ms"]),
@@ -1810,8 +1951,17 @@ def main() -> int:
         row(f"K3 block_lu_solve_fused B={BATCH}", src + "block_trisolve.cu",
             "flowcontrol_tpu/ops/pallas_trisolve.py:127", k3_batched_launches, k3[BATCH],
             k3[BATCH]["library_ms"]),
-        row("P1 gather_sum_sub", src + "mf_sweep.cu", probe_src + ":50", p1_launches,
-            mfk["P1"], None),
+        # P1's rows: all its launches of one solve; library_ms is
+        # index_select's time for the gather form (no call computes the
+        # inbox form); beside them the inbox launches against the earlier
+        # per-segment kernel, the gather form against torch's int64 index,
+        # and the sweep's device time outside K2 per solve now and before
+        row(f"P1 sweep_gather B={BATCH} cylinder", src + "mf_sweep.cu", probe_src + ":50",
+            p1_cyl_launches, p1[BATCH], p1[BATCH]["library_ms"],
+            **{k: p1[BATCH][k] for k in P1_EXTRA}),
+        row(f"P1 sweep_gather B={CAV_BATCH} cavity", src + "mf_sweep.cu", probe_src + ":50",
+            open_c["launches"][2], p1[CAV_BATCH], p1[CAV_BATCH]["library_ms"],
+            **{k: p1[CAV_BATCH][k] for k in P1_EXTRA}),
         row(f"F multifrontal_solve_fused cylinder n={mf.n}", src + "mf_fused.cu",
             "flowcontrol_tpu/solvers/multifrontal.py:1202", mfp["launches"][4], f_cyl, None,
             sweep_ms=f_cyl["sweep_ms"]),

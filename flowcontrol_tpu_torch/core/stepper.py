@@ -56,7 +56,7 @@ from flowcontrol_tpu_torch.core.graphs import Program
 from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
 from flowcontrol_tpu_torch.fem.bc import BCSet
 from flowcontrol_tpu_torch.ops.nl import NLTables, nonlinear_convection
-from flowcontrol_tpu_torch.ops.spmm import attach_plan, csr_matmul, csr_residual
+from flowcontrol_tpu_torch.ops.spmm import csr_matmul, csr_residual
 from flowcontrol_tpu_torch.parallel.dofsharding import mixed_dof_coordinates
 from flowcontrol_tpu_torch.solvers.block_lu import BlockLU
 from flowcontrol_tpu_torch.solvers.direct import DeviceDenseLU, HostSparseLU
@@ -113,7 +113,8 @@ def csr_to_device(a_csr, device, dtype) -> torch.Tensor:
     """scipy CSR -> torch sparse CSR on ``device`` (cuSPARSE SpMV on CUDA),
     its stored zeros dropped (the element assembly stores every entry of
     the element tensors; an FMA with a stored 0 changes no sum's value).
-    On CUDA the matrix carries kernel S's tile plan (``ops/spmm.py``)."""
+    On CUDA, kernel S builds the matrix's tile plan on its first batched
+    product (``ops/spmm.py`` ``plan_of``)."""
     a = a_csr.tocsr(copy=True)
     a.eliminate_zeros()
     device = torch.device(device)
@@ -128,8 +129,6 @@ def csr_to_device(a_csr, device, dtype) -> torch.Tensor:
             size=a.shape,
             check_invariants=True,
         )
-    if device.type == "cuda":
-        attach_plan(t, a.indptr, a.indices)
     return t
 
 

@@ -52,15 +52,47 @@
 //   4-byte copies. Full f32 FMAs: no TF32, no tensor cores (the repo's f32
 //   pin).
 //
-// P1, gather_sum_sub: out[b, j] = xe[b, j] - sum_k buf[b, t[k, j]] over one
-//   inbox segment of the forward sweep, t (kmax, w) int32 with pads
-//   pointing at buf[b, 0] = 0. Replaces the TPU probe
-//   tools/pallas_gather_probe.py (k_take, launched by take_2d_table), the
-//   primitive of the JAX sweep's _gather_sum0, and fuses the segment's
-//   subtraction. One thread per (b, j) sums its column in a fixed k order:
-//   deterministic, no atomics, reads of t coalesced along j. What bounds it:
-//   launch latency; all inboxes of one solve hold ~31k contributions at the
-//   56,383-dof cylinder, a few hundred KB in all.
+// P1, sweep_gather: the batched sweep's one gather kernel. Over a list of
+//   segments s (out offset o_s, width w_s, depth kmax_s, an int32 table
+//   t_s (kmax_s, w_s)) it computes, for every right-hand side b,
+//     the inbox form:  out[b, o_s + j] = xe[b, o_s + j] - sum_k src[b, t_s[k, j]]
+//                      (the sum a chain from 0 in k order, then one
+//                      subtraction: the bits of gather_sum_sub below);
+//     the gather form: out[b, o_s + j] = src[b, t_s[0, j]] (kmax_s = 1, no xe),
+//   where an index past src's row (>= n_src) reads 0: the zero sentinel of
+//   the entry permutation's pad slots. It replaces the TPU probe
+//   tools/pallas_gather_probe.py:50 (take_2d_table, k_take), the primitive
+//   of the JAX sweep's _gather_sum0 (flowcontrol_tpu/solvers/multifrontal.py
+//   :1343) and of its boundary gather (:1303), and takes, per solve: one
+//   launch per stage with an inbox (all its segments), one boundary gather
+//   per stage, and the entry and exit permutations.
+//   What bounds it: bytes. At the 56,383-dof cylinder and B = 256 a solve's
+//   gathers move ~0.5 GB (the entry and exit permutations ~115 MB each, the
+//   boundary gathers ~63 MB, the inbox ~47 MB), 0.15 ms at 3.35 TB/s; each
+//   launch is a few microseconds of latency at the narrow stages. The
+//   per-segment kernel below (one thread per (b, j), one launch per inbox
+//   segment) read the table once per right-hand side (~45 MB from L2 a
+//   solve), and the sweep's other gathers went through torch's index
+//   kernel with an int64 index per output element.
+//   Design: a block of 8 warps owns a tile of kGatherCols = 128 columns of
+//   one segment and a slab of kGatherSlab = 8 right-hand sides; it stages
+//   its tile of the table in shared memory (cp.async, 16-byte pieces where
+//   the rows are 16-byte aligned, in chunks of kGatherK rows of k) once and
+//   reuses it for the whole slab. Lane l of warp w takes columns l + 32 c
+//   (c < 4) of row w: a warp reads 32 consecutive table entries of one row
+//   of src at a time (runs of consecutive entries coalesce) and writes 32
+//   consecutive outputs; each of a thread's 4 sums takes its k values in
+//   order, the 4 loads of one k issued together and the k loop unrolled by
+//   4. The narrow per-stage launches (a few hundred to a few thousand
+//   columns) want many blocks, the permutations (64k columns) many loads
+//   in flight per thread: a scratch A/B of tiles of 32-128 columns and
+//   slabs of 8-32 on the H100 chose this shape for both. A segment's tiles
+//   follow the previous segment's in the grid (its descriptor holds its
+//   first tile). No atomics: two calls give the same bits.
+//
+// gather_sum_sub (the earlier P1, kept as the sweep's reference order):
+//   one inbox segment, one thread per (b, j) summing its column in k order:
+//   out[b, j] = xe[b, j] - sum_k buf[b, t[k, j]].
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,6 +104,16 @@ constexpr int kRows = kWarps;  // output rows per block: one per warp
 constexpr int kLoads = 8;      // 16-byte loads of a in flight per lane
 constexpr int kChunk = 8;      // most right-hand sides per pass over a
 constexpr int kGatherThreads = 256;
+
+// P1's tiles
+constexpr int kGatherCols = 128;  // columns of one block's tile: four per lane
+constexpr int kGatherSlab = 8;    // right-hand sides of one block's slab: one per warp
+constexpr int kGatherK = 32;      // table rows (k) staged at once
+// a segment's descriptor: out offset, w, kmax, table offset, first tile
+constexpr int kSegWords = 5;
+constexpr int kGatherWarps = kGatherThreads / 32;
+constexpr int kColsPer = kGatherCols / 32;         // columns of a lane
+constexpr int kRowsPer = kGatherSlab / kGatherWarps;  // rows of a warp
 
 // the wide instance's tiles
 constexpr int kWideThreads = 128;  // threads of one group (a block holds SK groups)
@@ -429,6 +471,122 @@ __global__ void gather_sum_sub_kernel(const float* __restrict__ buf, int64_t buf
   out[b * o_bstride + j] = xe[b * xe_bstride + j] - s;
 }
 
+// stage rows [k0, k0 + kc) of columns [j0, j0 + kGatherCols) of the table t
+// (kmax, w), row-major, into st[kc][kGatherCols]; columns past w are
+// zero-filled (the copy reads no byte there). VEC: t and w are multiples
+// of 4 ints, so the rows are 16-byte aligned and the copies 16-byte pieces.
+template <bool VEC>
+__device__ __forceinline__ void stage_table(int* st, const int* t, int w, int k0, int kc, int j0) {
+  constexpr int kPer = VEC ? 4 : 1;  // ints of one copy
+  constexpr int kRowCopies = kGatherCols / kPer;
+  for (int i = threadIdx.x; i < kc * kRowCopies; i += kGatherThreads) {
+    const int kk = i / kRowCopies;
+    const int c = kPer * (i - kk * kRowCopies);
+    const bool full = j0 + c < w;  // VEC: w % 4 == 0, so all four or none
+    const int* g = full ? t + (int64_t)(k0 + kk) * w + j0 + c : t;
+    float* d = reinterpret_cast<float*>(st + kk * kGatherCols + c);
+    if (VEC) {
+      cp_async16(d, reinterpret_cast<const float*>(g), full);
+    } else {
+      cp_async4(d, reinterpret_cast<const float*>(g), full);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// P1 (see the note at the top). Grid (tiles of all segments, slabs of
+// kGatherSlab right-hand sides); desc[s * kSegWords + ...] = (out offset,
+// w, kmax, table offset, first tile) of segment s, in tile order. xe null:
+// the gather form (kmax 1). xe and out may be the same memory (the sweep
+// updates its work vector in place): each element is read, then written,
+// by one thread.
+__global__ void __launch_bounds__(kGatherThreads)
+    sweep_gather_kernel(const int* __restrict__ desc, int n_segs, const int* __restrict__ tables,
+                        const float* __restrict__ src, int64_t src_bstride, int n_src,
+                        const float* xe, int64_t xe_bstride, float* out, int64_t o_bstride,
+                        int batch) {
+  __shared__ __align__(16) int st[kGatherK * kGatherCols];
+  int s = 0;  // the block's segment: the last one whose first tile is at or before it
+  while (s + 1 < n_segs && desc[(s + 1) * kSegWords + 4] <= (int)blockIdx.x) ++s;
+  const int* d = desc + s * kSegWords;
+  const int o_off = d[0], w = d[1], kmax = d[2], t_off = d[3];
+  const int j0 = ((int)blockIdx.x - d[4]) * kGatherCols;
+  const int* t = tables + t_off;
+  const bool vec = ((t_off | w) & 3) == 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b0 = blockIdx.y * kGatherSlab + warp;  // rows b0 + kGatherWarps r
+  bool col_ok[kColsPer];  // columns lane + 32 c
+#pragma unroll
+  for (int c = 0; c < kColsPer; ++c) col_ok[c] = j0 + lane + 32 * c < w;
+
+  if (xe == nullptr) {  // the gather form: one table row
+    if (vec) {
+      stage_table<true>(st, t, w, 0, 1, j0);
+    } else {
+      stage_table<false>(st, t, w, 0, 1, j0);
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPer; ++r) {
+      const int b = b0 + kGatherWarps * r;
+      if (b >= batch) break;
+#pragma unroll
+      for (int c = 0; c < kColsPer; ++c) {
+        if (!col_ok[c]) continue;
+        const int j = lane + 32 * c;
+        const int idx = st[j];
+        out[(int64_t)b * o_bstride + o_off + j0 + j] =
+            idx < n_src ? __ldg(src + (int64_t)b * src_bstride + idx) : 0.f;
+      }
+    }
+    return;
+  }
+
+  float acc[kRowsPer][kColsPer];
+#pragma unroll
+  for (int r = 0; r < kRowsPer; ++r)
+#pragma unroll
+    for (int c = 0; c < kColsPer; ++c) acc[r][c] = 0.f;
+  for (int k0 = 0; k0 < kmax; k0 += kGatherK) {
+    const int kc = min(kGatherK, kmax - k0);
+    if (k0 > 0) __syncthreads();  // the previous chunk is consumed
+    if (vec) {
+      stage_table<true>(st, t, w, k0, kc, j0);
+    } else {
+      stage_table<false>(st, t, w, k0, kc, j0);
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < kc; ++kk) {
+      int idx[kColsPer];
+#pragma unroll
+      for (int c = 0; c < kColsPer; ++c) idx[c] = st[kk * kGatherCols + lane + 32 * c];
+      float v[kRowsPer][kColsPer];
+#pragma unroll
+      for (int r = 0; r < kRowsPer; ++r) {  // all loads of this k before the adds
+        const float* sb = src + (int64_t)min(b0 + kGatherWarps * r, batch - 1) * src_bstride;
+#pragma unroll
+        for (int c = 0; c < kColsPer; ++c) v[r][c] = idx[c] < n_src ? __ldg(sb + idx[c]) : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsPer; ++r)
+#pragma unroll
+        for (int c = 0; c < kColsPer; ++c) acc[r][c] += v[r][c];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsPer; ++r) {
+    const int b = b0 + kGatherWarps * r;
+    if (b >= batch) break;
+#pragma unroll
+    for (int c = 0; c < kColsPer; ++c) {
+      if (!col_ok[c]) continue;
+      const int64_t j = o_off + j0 + lane + 32 * c;
+      out[(int64_t)b * o_bstride + j] = xe[(int64_t)b * xe_bstride + j] - acc[r][c];
+    }
+  }
+}
+
 }  // namespace
 
 // a (m, p, q) f32 contiguous; v[b, mi, j] at v + b*v_bstride + mi*q + j;
@@ -469,6 +627,25 @@ extern "C" int mf_gather_sum_sub_f32(const float* buf, int64_t buf_bstride, cons
       buf, buf_bstride, t, kmax, w, xe, xe_bstride, out, o_bstride, batch);
   return (int)cudaGetLastError();
 }
+
+// P1 over the n_segs segments desc[0 .. n_segs) (int32, kSegWords each,
+// their first tiles ascending from 0; n_tiles tiles in all), tables their
+// flat int32 table; src[b, c] at src + b*src_bstride + c for c < n_src (an
+// index >= n_src reads 0); xe (null: the gather form) and out as
+// above. Same launch contract as above.
+extern "C" int mf_sweep_gather_f32(const int* desc, int n_segs, int n_tiles, const int* tables,
+                                   const float* src, int64_t src_bstride, int n_src,
+                                   const float* xe, int64_t xe_bstride, float* out,
+                                   int64_t o_bstride, int batch, void* stream) {
+  if (n_tiles <= 0 || batch <= 0) return 0;
+  const dim3 grid((unsigned)n_tiles, (unsigned)((batch + kGatherSlab - 1) / kGatherSlab));
+  sweep_gather_kernel<<<grid, kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      desc, n_segs, tables, src, src_bstride, n_src, xe, xe_bstride, out, o_bstride, batch);
+  return (int)cudaGetLastError();
+}
+
+// P1's tile width, which the descriptors' first tiles count in
+extern "C" int mf_gather_cols() { return kGatherCols; }
 
 extern "C" const char* mf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

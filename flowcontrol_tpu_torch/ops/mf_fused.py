@@ -20,8 +20,8 @@ primitives P2, P3 and P4 on their own.
   :func:`take_along_axis_lanes` (P2, ``out[r, j] = v[r, idx[r, j]]``),
   :func:`dynamic_slice` (P3, ``v[s : s + w]`` at a runtime offset held in
   device memory) and :func:`dynamic_offset_accum_store` (P4,
-  ``o[s : s + w] += v``). P1, the inbox gather-sum, is
-  ``ops/mf_matvec.gather_sum_sub``.
+  ``o[s : s + w] += v``). P1, the per-stage sweep's gathers (the inbox
+  sums among them), is ``ops/mf_matvec.sweep_gather``.
 
 All live in ``csrc/mf_fused.cu``. Each wrapper takes its plain version for
 CPU tensors and launches its kernel for CUDA tensors, or raises on what the

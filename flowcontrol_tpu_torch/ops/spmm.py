@@ -14,9 +14,11 @@ CUDA graph could not be held to the eager step bit for bit. S
 (B, n) and writing (B, n_rows) as the step holds them: one launch a call,
 no layout copy. Its blocks walk the matrix's :class:`SpmmPlan`, built once
 on the host from the sparsity pattern and attached to the matrix by
-:func:`attach_plan` (``core/stepper.py`` ``csr_to_device`` does it for
-every matrix it ships to the card); it lives as long as the matrix, so a
-CUDA graph of a launch keeps reading it. :func:`csr_matmul_rowwise` is
+:func:`attach_plan`: :func:`plan_of` does it on the matrix's first batched
+product (a single stream, which never runs S, builds none). It lives as
+long as the matrix, so a CUDA graph of a launch keeps reading it; the
+graphs' eager warm-up makes the first product before any capture, and a
+first product reached during a capture raises. :func:`csr_matmul_rowwise` is
 S's earlier row-wise kernel, kept as the reference order (the tiled kernel
 gives its bits) for the ``cuda`` tests and ``chip_smoke.py``.
 
@@ -166,14 +168,27 @@ class SpmmPlan:
                    max_cols=int(np.diff(col_off).max(initial=0)))
 
 
-def attach_plan(a: torch.Tensor, indptr=None, indices=None):
-    """Build the plan of the sparse CSR ``a`` (its values, and its pattern
-    or the host arrays ``indptr`` and ``indices`` when given) and hold it on
-    ``a`` as ``a.spmm_plan`` for ``a``'s lifetime. Returns ``a``."""
-    if indptr is None:
-        indptr, indices = a.crow_indices().cpu().numpy(), a.col_indices().cpu().numpy()
-    a.spmm_plan = SpmmPlan.build(indptr, indices, a.values().cpu().numpy(), a.device)
+def attach_plan(a: torch.Tensor):
+    """Build the plan of the sparse CSR ``a`` from its pattern and values
+    and hold it on ``a`` as ``a.spmm_plan`` for ``a``'s lifetime. Returns
+    ``a``."""
+    a.spmm_plan = SpmmPlan.build(a.crow_indices().cpu().numpy(), a.col_indices().cpu().numpy(),
+                                 a.values().cpu().numpy(), a.device)
     return a
+
+
+def plan_of(a: torch.Tensor) -> SpmmPlan:
+    """The tile plan of the sparse CSR ``a`` on CUDA, built and attached
+    (:func:`attach_plan`) on the first call. The build copies the pattern
+    to the host, which a CUDA graph cannot capture: during a capture a
+    matrix without its plan raises."""
+    plan = getattr(a, "spmm_plan", None)
+    if plan is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("S builds a matrix's tile plan on its first batched product, "
+                               "which must run before a CUDA graph captures one")
+        plan = attach_plan(a).spmm_plan
+    return plan
 
 
 def csr_matmul_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -194,11 +209,7 @@ def _check(a: torch.Tensor, x: torch.Tensor, what: str) -> SpmmPlan:
     n = a.shape[1]
     if x.dim() != 2 or x.shape[1] != n:
         raise ValueError(f"{what} has shape {tuple(x.shape)}, needs (B, {n})")
-    plan = getattr(a, "spmm_plan", None)
-    if plan is None:
-        raise ValueError("S needs the matrix's tile plan: build it once with "
-                         "ops.spmm.attach_plan(a) (core.stepper.csr_to_device does)")
-    return plan
+    return plan_of(a)
 
 
 def _launch(fn, plan: SpmmPlan, a: torch.Tensor, x: torch.Tensor, *rest) -> torch.Tensor:

@@ -17,13 +17,13 @@ past the size where one dense factor fits the device: factor storage is
   penalty DP) and padded into stacks.
 - SOLVE (device): one forward and one backward sweep over the stages,
   deepest first, on a preallocated work vector in stage-slot order and a
-  contribution buffer. Each stage runs P1 (:func:`gather_sum_sub`) over its
-  inbox segments and K2 (:func:`stack_matvec`) for ``inv·xe``, ``fbi·z``
-  and ``ginv·xb``; slices, the boundary gather and the permutations stay
-  plain torch, as they stay outside any Pallas kernel in the JAX package.
-  On CUDA, up to ``FUSED_MAX_ROWS`` right-hand sides take kernel F
-  instead (``ops/mf_fused.py``): the whole solve in one launch, walking a
-  stage descriptor array over the same stacks and tables.
+  contribution buffer. P1 (:func:`sweep_gather`) makes every gather of the
+  sweep: the entry permutation, each stage's inbox sums (one launch over
+  its segments) and boundary gather, the exit permutation; K2
+  (:func:`stack_matvec`) the products ``inv·xe``, ``fbi·z`` and
+  ``ginv·xb``. On CUDA, up to ``FUSED_MAX_ROWS`` right-hand sides take
+  kernel F instead (``ops/mf_fused.py``): the whole solve in one launch,
+  walking a stage descriptor array over the same stacks and tables.
 
 The host half is transcribed from the JAX package and gives bitwise the
 same tree, stacks and tables. Not carried over: the disk factor cache and
@@ -50,7 +50,12 @@ from flowcontrol_tpu_torch.ops.mf_fused import (
     STAGE_WORDS,
     multifrontal_solve_fused,
 )
-from flowcontrol_tpu_torch.ops.mf_matvec import gather_sum_sub, stack_matvec
+from flowcontrol_tpu_torch.ops.mf_matvec import (
+    GatherPlan,
+    gather_descriptors,
+    stack_matvec,
+    sweep_gather,
+)
 from flowcontrol_tpu_torch.solvers.tridiag import graph_levels
 
 logger = logging.getLogger(__name__)
@@ -227,10 +232,12 @@ class MFStage:
 
     ``inv`` (m, e, e), ``ginv`` (m, e, b), ``fbi`` (m, b, e) in the store
     dtype; ``bd`` (m, b) int64 absolute work-vector slots of the boundary
-    (pads -> the trailing zero slot); ``inbox`` one int32 table
-    (kmax, (m1 - m0)·e) per tabbed segment, positions in the contribution
-    buffer (pads -> its leading zero); ``segs`` the (m0, m1, tabbed)
-    node segments."""
+    (pads -> the trailing zero slot), ``bd32`` the same in int32; ``inbox``
+    one int32 table (kmax, (m1 - m0)·e) per tabbed segment, positions in
+    the contribution buffer (pads -> its leading zero); ``segs`` the
+    (m0, m1, tabbed) node segments. P1's launches: ``p1_inbox`` the inbox
+    sums over every tabbed segment (None without one; output columns from
+    the stage's first slot), ``p1_bd`` the boundary gather."""
 
     e: int
     b: int
@@ -243,6 +250,10 @@ class MFStage:
     fbi: torch.Tensor
     bd: torch.Tensor
     inbox: tuple
+    # set by MultifrontalLU._finalize_p1
+    bd32: torch.Tensor | None = None
+    p1_inbox: GatherPlan | None = None
+    p1_bd: GatherPlan | None = None
 
 
 class MultifrontalLU:
@@ -590,7 +601,13 @@ class MultifrontalLU:
         int64 table (``flat_bd``) and its inbox tables views of one flat
         int32 table (``flat_inbox``): the per-stage sweep and kernel F read
         the same bytes. ``desc`` is F's stage descriptor array
-        (``ops/mf_fused.py``: ``STAGE_WORDS`` int64 words per stage)."""
+        (``ops/mf_fused.py``: ``STAGE_WORDS`` int64 words per stage).
+
+        The per-stage sweep's P1 launches read ``p1_desc`` (their segment
+        descriptors, ``ops/mf_matvec.gather_descriptors``), the inbox tables
+        and ``p1_tables``: int32 copies of the entry permutation over the
+        work vector's ``work_slots`` slots (pads -> n, read as zero), of
+        ``ipos`` and of every stage's ``bd``, each 16-byte aligned."""
         dev = self.device
         self.n_depths = int(tables["n_depths"])
         self.total_slots = int(tables["total"])
@@ -680,6 +697,50 @@ class MultifrontalLU:
         #: the largest front or boundary of any stage (a multiple of 8): the
         #: length of one node's vector, which kernel F stages in shared memory
         self.max_front = max(max(s.e, s.b) for s in self.stages)
+        self._finalize_p1(tables, statics)
+
+    def _finalize_p1(self, tables, statics):
+        """The per-stage sweep's P1 launches (see :meth:`_finalize_device`)."""
+        dev, n, total = self.device, self.n, self.total_slots
+        #: slots of one row of the sweep's work vectors: the stage slots, the
+        #: trailing zero slot the boundary pads read, rounded up to 4 floats
+        #: (K2's wide instance then copies stage slices in 16-byte pieces)
+        self.work_slots = -(-(total + 1) // 4) * 4
+        pieces = [np.concatenate([tables["perm"], np.full(self.work_slots - total, n)]),
+                  tables["ipos"]] + [st_h["bd"].reshape(-1) for st_h in tables["stages"]]
+        offs, n_tab = [], 0
+        for a in pieces:
+            offs.append(n_tab)
+            n_tab += -(-len(a) // 4) * 4
+        host = np.zeros(n_tab, dtype=np.int32)
+        for o, a in zip(offs, pieces):
+            host[o: o + len(a)] = a
+        self.p1_tables = torch.as_tensor(host, device=dev)
+        self.perm32 = self.p1_tables[: self.work_slots]
+        self.ipos32 = self.p1_tables[offs[1]: offs[1] + n]
+        # (segments, tables, inbox form) of every launch, then one descriptor
+        # array for all of them
+        launches = [([(0, self.work_slots, 1, 0)], self.p1_tables, False),
+                    ([(0, n, 1, offs[1])], self.p1_tables, False)]
+        for di, (e, b, m, *_, seg_rec) in enumerate(statics):
+            launches.append(([(0, m * b, 1, offs[2 + di])], self.p1_tables, False))
+            inbox = [(m0 * e, (m1 - m0) * e, kmax, o_ib)
+                     for (m0, m1, tabbed, o_ib, kmax) in seg_rec if tabbed]
+            if inbox:
+                launches.append((inbox, self.flat_inbox, True))
+        rows = [gather_descriptors(segs) for segs, _, _ in launches]
+        self.p1_desc = torch.as_tensor(np.concatenate([r for r, _ in rows]), device=dev)
+        plans, r0 = [], 0
+        for (segs, flat, sub), (r, tiles) in zip(launches, rows):
+            plans.append(GatherPlan(desc=self.p1_desc[r0: r0 + len(segs)], tables=flat,
+                                    segs=tuple(segs), sub=sub, n_tiles=tiles))
+            r0 += len(segs)
+        self.p1_entry, self.p1_exit = plans[0], plans[1]
+        it = iter(plans[2:])
+        for di, st in enumerate(self.stages):
+            st.p1_bd = next(it)
+            st.bd32 = self.p1_tables[offs[2 + di]: offs[2 + di] + st.m * st.b].view(st.m, st.b)
+            st.p1_inbox = next(it) if st.inbox else None
 
     # ── public API ──────────────────────────────────────────────────────────
 
@@ -689,11 +750,13 @@ class MultifrontalLU:
         return sum(s.inv.nbytes + s.ginv.nbytes + s.fbi.nbytes for s in self.stages)
 
     def launches_per_solve(self) -> tuple[int, int]:
-        """(K2, P1) launches of one solve: three K2 per stage (the root's
-        forward update has no consumer, so one fewer) and one P1 per
-        tabbed inbox segment."""
+        """(K2, P1) launches of one solve through the per-stage sweep:
+        three K2 per stage (the root's forward update has no consumer, so
+        one fewer); P1 once per stage with an inbox (all its segments),
+        once per stage for the boundary gather, and once each for the entry
+        and exit permutations."""
         k2 = 3 * len(self.stages) - 1
-        p1 = sum(len(s.inbox) for s in self.stages)
+        p1 = sum(1 for s in self.stages if s.inbox) + len(self.stages) + 2
         return k2, p1
 
     def takes_fused(self, rows: int) -> bool:
@@ -941,16 +1004,17 @@ def _table_skip_pads(dest: np.ndarray, n_out: int) -> np.ndarray:
 def multifrontal_solve(mf: MultifrontalLU, b: torch.Tensor) -> torch.Tensor:
     """x = A^-1 b for b (..., n) on ``mf.device``.
 
-    One dataflow for any leading batch (the JAX package's ``_solve_threaded``):
-    a preallocated work vector x (B, total + 1 rounded up to 4) in
-    stage-slot order, whose trailing slots stay zero for the boundary pads,
-    and a contribution buffer (B, 1 + total_contrib) with a zero at
-    position 0 for the inbox pads. Forward sweep, deepest stage first: xe ← xe − Σ inbox (P1, in
-    place, one launch per tabbed segment); z = inv·xe (K2); the stage's
-    boundary updates fbi·z (K2) go straight into its slice of the buffer;
-    z is written over xe. Backward sweep, root first: x[stage] ← z −
-    ginv·x[bd] (K2; the gather of ancestor slots and the subtraction are
-    plain torch).
+    One dataflow for any leading batch (the JAX package's ``_solve_threaded``)
+    over two work vectors of ``mf.work_slots`` slots a row in stage-slot
+    order, x and z, and a contribution buffer (B, 1 + total_contrib) whose
+    position 0, the inbox pads' zero, is the only one read before a stage
+    writes it. x ← b through the entry permutation (P1; pad slots and the
+    trailing slots, which the boundary pads read, are 0). Forward sweep,
+    deepest stage first: xe ← xe − Σ inbox (P1, in place, one launch over
+    the stage's segments); z = inv·xe (K2, into z); the stage's boundary
+    updates fbi·z (K2) go straight into its slice of the buffer. Backward
+    sweep, root first: x[stage] ← z − ginv·x[bd] (the boundary gather P1,
+    then K2 and one subtraction). x ← x through the exit permutation (P1).
     """
     batch = b.shape[:-1]
     n = mf.n
@@ -961,37 +1025,28 @@ def multifrontal_solve(mf: MultifrontalLU, b: torch.Tensor) -> torch.Tensor:
         rows *= int(d)
     bb = b.reshape(rows, n).to(dtype)
     dev = bb.device
-    total, n_stages = mf.total_slots, len(mf.stages)
+    xs = mf.work_slots
+    x = sweep_gather(mf.p1_entry, bb, out=torch.empty((rows, xs), dtype=dtype, device=dev))
+    z = torch.empty((rows, xs), dtype=dtype, device=dev)
+    buf = torch.empty((rows, 1 + mf.total_contrib), dtype=dtype, device=dev)
+    buf[:, :1].zero_()
 
-    # slot -> dof: pad slots (perm == n) read the appended zero, and so do
-    # the trailing slot, which the boundary pads point at, and the slots that
-    # round each row of x up to 16 bytes (K2's wide instance then copies
-    # its stage slices in 16-byte pieces)
-    xs = -(-(total + 1) // 4) * 4
-    x = torch.nn.functional.pad(bb, (0, 1))[
-        :, torch.nn.functional.pad(mf.perm, (0, xs - total - 1), value=n)]
-    buf = torch.zeros((rows, 1 + mf.total_contrib), dtype=dtype, device=dev)
-
+    last = len(mf.stages) - 1
     for si, st in enumerate(mf.stages):
         e, m, off = st.e, st.m, st.off
-        ti = 0
-        for (m0, m1, tabbed) in st.segs:
-            if not tabbed:
-                continue
-            seg = x[:, off + m0 * e: off + m1 * e]
-            gather_sum_sub(buf, st.inbox[ti], seg, out=seg)
-            ti += 1
-        xe = x[:, off: off + m * e].view(rows, m, e)
-        z = stack_matvec(st.inv, xe)
-        if si < n_stages - 1:  # the root's updates have no consumer
+        xe = x[:, off: off + m * e]
+        if st.p1_inbox is not None:
+            sweep_gather(st.p1_inbox, buf, xe=xe, out=xe)
+        ze = stack_matvec(st.inv, xe.view(rows, m, e),
+                          out=z[:, off: off + m * e].view(rows, m, e))
+        if si < last:  # the root's updates have no consumer
             c0 = 1 + st.c_off
-            stack_matvec(st.fbi, z, out=buf[:, c0: c0 + m * st.b].view(rows, m, st.b))
-        xe.copy_(z)
+            stack_matvec(st.fbi, ze, out=buf[:, c0: c0 + m * st.b].view(rows, m, st.b))
 
     for st in reversed(mf.stages):
         e, m, off = st.e, st.m, st.off
-        xb = x[:, st.bd.reshape(-1)].view(rows, m, st.b)  # ancestor slots are final
-        corr = stack_matvec(st.ginv, xb)
-        x[:, off: off + m * e].sub_(corr.reshape(rows, m * e))
+        xb = sweep_gather(st.p1_bd, x)  # ancestor slots are final
+        corr = stack_matvec(st.ginv, xb.view(rows, m, st.b))
+        torch.sub(z[:, off: off + m * e], corr.reshape(rows, m * e), out=x[:, off: off + m * e])
 
-    return x[:, mf.ipos].reshape(batch + (n,)).to(out_dtype)
+    return sweep_gather(mf.p1_exit, x).reshape(batch + (n,)).to(out_dtype)

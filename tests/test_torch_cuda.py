@@ -23,9 +23,18 @@ package, so it also runs on a GPU machine without them:
   field error below 1e-4 relative, y within rtol 5e-4 and atol 1e-6.
 - Kernels K2 and P1 (``csrc/mf_sweep.cu``) against their plain torch
   versions at batch 1 and 4 (K2 also at 2 and 9, its other instances; at
-  stage shapes that are multiples of 8 and one that is not; P1 on a random
-  inbox table): relative error <= 1e-5, one counted launch per call; a
-  CUDA tensor they do not take is refused. K2's wide instance (the tiled
+  stage shapes that are multiples of 8 and one that is not; P1 on random
+  tables of both forms, one deeper than a staged chunk, one ragged, one
+  with pads past src's row): relative error <= 1e-5 (P1's gather form:
+  bitwise), one counted launch per call; a CUDA tensor they do not take is
+  refused. P1 ``torch.equal`` to the earlier per-segment kernel
+  (``gather_sum_sub``) on every stage's inbox of the coarse cylinder's and
+  a small cavity's factors, batch 9, 33, 64 and 256, one launch a stage; its
+  gather form ``torch.equal`` to ``torch.index_select`` on the same int32
+  tables (the entry and exit permutations, every boundary); the batched
+  solve ``torch.equal`` to the earlier dataflow
+  (``tests/mf_sweep_reference.py``) at batch 64 and 256, with exactly
+  ``launches_per_solve()`` K2 and P1 launches. K2's wide instance (the tiled
   product) at batch 9, 64, 100 and 256, on stage shapes with p or q = 8,
   widths that are not a multiple of its 64-wide tiles and a 1,528 front,
   through strided v and out: also bitwise repeatable, and writing nothing
@@ -51,7 +60,10 @@ package, so it also runs on a GPU machine without them:
   against its plain version (cuSPARSE's product) on the coarse cylinder's
   mass matrix, f32 and f64, batch 1, 3, 64 and 256: relative error <= 1e-5
   (f32) or 1e-12 (f64), two calls bitwise equal, one counted launch per
-  call. The tiled kernel ``torch.equal`` to the row-wise reference kernel
+  call. A matrix gets its tile plan on its first batched product: none
+  after ``csr_to_device`` or single-stream steps, and a first product
+  inside a CUDA graph capture raises. The tiled kernel ``torch.equal`` to
+  the row-wise reference kernel
   (the order it keeps), f32 and f64, batch 2, 3, 33, 64 and 256, on the
   coarse cylinder's mass and BDF2 operator and on matrices whose dense row
   forces a tile to be cut (or, past the column budget, takes a tile of its
@@ -83,10 +95,13 @@ from flowcontrol_tpu_torch.models.cavity import CavityFlowSolver
 from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
 from flowcontrol_tpu_torch.ops import mf_fused
 from flowcontrol_tpu_torch.ops.mf_matvec import (
+    GatherPlan,
+    gather_descriptors,
     gather_sum_sub,
-    gather_sum_sub_plain,
     stack_matvec,
     stack_matvec_plain,
+    sweep_gather,
+    sweep_gather_plain,
 )
 from flowcontrol_tpu_torch.core.stepper import Stepper
 from flowcontrol_tpu_torch.ops.nl import (
@@ -105,6 +120,7 @@ from flowcontrol_tpu_torch.parallel.dofsharding import mixed_dof_coordinates
 from flowcontrol_tpu_torch.solvers.block_lu import BlockLU, block_lu_solve
 from flowcontrol_tpu_torch.solvers.direct import DeviceDenseLU
 from flowcontrol_tpu_torch.solvers.multifrontal import MultifrontalLU, multifrontal_solve
+from mf_sweep_reference import multifrontal_solve_reference
 
 COARSE = dict(yinf=5.0, xinf=15.0, xinfa=-5.0, n1=4.0, n2=2.0, n3=0.8, segments=80)
 # the reference's coarse meshes (tests/integration/conftest.py)
@@ -305,23 +321,144 @@ def test_torch_cuda_k2_wide_matches_plain(cuda, batch, m, p, q):
         assert bool((buf[:, 0] == 7.0).all()) and bool((buf[:, 1 + m * p:] == 7.0).all())
 
 
+def _plan(segs, flat, sub, device):
+    """A P1 plan over ``segs`` ((out column, w, kmax, table offset) each) of
+    the flat int32 table ``flat`` on ``device``."""
+    rows, tiles = gather_descriptors(segs)
+    return GatherPlan(desc=torch.as_tensor(rows, device=device), tables=flat, segs=tuple(segs),
+                      sub=sub, n_tiles=tiles)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 4])
 def test_torch_cuda_p1_matches_plain(cuda, batch):
+    """P1 on random tables: the inbox form over three segments (kmax 5,
+    70 (three staged chunks) and 2; widths 700, 96 and a ragged 45 whose
+    table rows are not 16-byte aligned) in place, and the gather form with
+    pads past src's row."""
     rng = np.random.default_rng(batch)
-    n_buf, kmax, w = 3001, 5, 700
+    n_buf = 3001
     buf = torch.as_tensor(rng.standard_normal((batch, n_buf)), dtype=torch.float32, device=cuda)
     buf[:, 0] = 0.0
-    t = torch.as_tensor(rng.integers(0, n_buf, (kmax, w)), dtype=torch.int32, device=cuda)
-    xe = torch.as_tensor(rng.standard_normal((batch, w)), dtype=torch.float32, device=cuda)
-    before = gather_sum_sub.launches
-    got = gather_sum_sub(buf, t, xe)
-    ref = gather_sum_sub_plain(buf, t, xe)
+    segs, o, t_off = [], 0, 0
+    for kmax, w in ((5, 700), (70, 96), (2, 45)):
+        segs.append((o, w, kmax, t_off))
+        o, t_off = o + w + 3, t_off + kmax * w
+    flat = torch.as_tensor(rng.integers(0, n_buf, t_off), dtype=torch.int32, device=cuda)
+    plan = _plan(segs, flat, True, cuda)
+    x = torch.as_tensor(rng.standard_normal((batch, plan.width + 5)), dtype=torch.float32,
+                        device=cuda)
+    ref = sweep_gather_plain(plan, buf, xe=x, out=x.clone())
+    got = x.clone()
+    before = sweep_gather.launches
+    sweep_gather(plan, buf, xe=got, out=got)
     torch.cuda.synchronize()
-    assert gather_sum_sub.launches == before + 1
+    assert sweep_gather.launches == before + 1
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+    for lo, hi in ((700, 703), (799, 802), (plan.width, plan.width + 5)):  # between segments
+        assert torch.equal(got[:, lo: hi], x[:, lo: hi])
+    # the gather form: indices up to n_buf + 9, those past the row read 0
+    table = torch.as_tensor(rng.integers(0, n_buf + 10, 777), dtype=torch.int32, device=cuda)
+    gplan = _plan([(0, 777, 1, 0)], table, False, cuda)
+    got = sweep_gather(gplan, buf)
+    padded = torch.nn.functional.pad(buf, (0, 10))
+    assert torch.equal(got, padded[:, table.long()]) and sweep_gather.launches == before + 2
     with pytest.raises(ValueError):
-        gather_sum_sub(buf, t.long(), xe)
+        sweep_gather(gplan, buf.double())
+    with pytest.raises(ValueError):
+        sweep_gather(plan, buf)  # the inbox form takes xe
+
+
+@pytest.fixture(scope="module")
+def sweep_factors(tmp_path_factory):
+    """{flow: f32 multifrontal factor on the card}: the coarse cylinder's
+    BDF2 matrix (leaf_max 700) and a small cavity's (leaf_max 300), around
+    the default initial guess; None without a card."""
+    if not torch.cuda.is_available():
+        return None
+    out = {}
+    for name, cls, mesh, leaf in (
+            ("cylinder", CylinderFlowSolver, MESHES["cylinder"](), 700),
+            ("cavity", CavityFlowSolver, cavity_mesh(n_coarse=4, n_mid=8, n_fine=16), 300)):
+        fs = cls.make_default(mesh=mesh, device="cpu", path_out=tmp_path_factory.mktemp(name))
+        lhs = fs.forms.transient_lhs(2, fs._default_steady_state_initial_guess())
+        a_bc, _ = fs._bcset_perturbation().eliminate_csr(
+            to_scipy_csr(lhs, fs.space.cell_dofs, fs.space.n_dofs))
+        out[name] = MultifrontalLU(a_bc, mixed_dof_coordinates(fs.space),
+                                   torch.device("cuda", 0), dtype=torch.float32, leaf_max=leaf)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [9, 33, 64, 256])
+@pytest.mark.parametrize("flow", ["cylinder", "cavity"])
+def test_torch_cuda_p1_equals_segment_kernel(cuda, sweep_factors, flow, batch):
+    """Every stage's inbox in one P1 launch, in place on a work vector,
+    torch.equal to the earlier kernel launched once per segment."""
+    mf = sweep_factors[flow]
+    rng = np.random.default_rng(batch)
+    buf = torch.as_tensor(rng.standard_normal((batch, 1 + mf.total_contrib)),
+                          dtype=torch.float32, device=cuda)
+    buf[:, 0] = 0.0
+    x = torch.as_tensor(rng.standard_normal((batch, mf.work_slots)), dtype=torch.float32,
+                        device=cuda)
+    got, want = x.clone(), x.clone()
+    n_stages = 0
+    for st in mf.stages:
+        if st.p1_inbox is None:
+            continue
+        n_stages += 1
+        xe = got[:, st.off: st.off + st.m * st.e]
+        before = sweep_gather.launches
+        sweep_gather(st.p1_inbox, buf, xe=xe, out=xe)
+        assert sweep_gather.launches == before + 1
+        for i, (o, w, _, _) in enumerate(st.p1_inbox.segs):
+            seg = want[:, st.off + o: st.off + o + w]
+            gather_sum_sub(buf, st.inbox[i], seg, out=seg)
+    torch.cuda.synchronize()
+    assert n_stages > 1 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [9, 33, 64, 256])
+@pytest.mark.parametrize("flow", ["cylinder", "cavity"])
+def test_torch_cuda_p1_gather_matches_index_select(cuda, sweep_factors, flow, batch):
+    """P1's gather form torch.equal to torch.index_select on the same int32
+    tables: the entry permutation (its pads read b's appended zero), every
+    stage's boundary and the exit permutation."""
+    mf = sweep_factors[flow]
+    rng = np.random.default_rng(batch + 1)
+    bb = torch.as_tensor(rng.standard_normal((batch, mf.n)), dtype=torch.float32, device=cuda)
+    x = torch.as_tensor(rng.standard_normal((batch, mf.work_slots)), dtype=torch.float32,
+                        device=cuda)
+    pairs = [(sweep_gather(mf.p1_entry, bb),
+              torch.index_select(torch.nn.functional.pad(bb, (0, 1)), 1, mf.perm32)),
+             (sweep_gather(mf.p1_exit, x), torch.index_select(x, 1, mf.ipos32))]
+    pairs += [(sweep_gather(st.p1_bd, x), torch.index_select(x, 1, st.bd32.reshape(-1)))
+              for st in mf.stages]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [64, 256])
+@pytest.mark.parametrize("flow", ["cylinder", "cavity"])
+def test_torch_cuda_sweep_equals_earlier_dataflow(cuda, sweep_factors, flow, batch):
+    """The batched solve torch.equal to the earlier dataflow (one P1 per
+    inbox segment, torch's index kernels, the copy of z), with exactly the
+    K2 and P1 launches ``launches_per_solve`` gives."""
+    mf = sweep_factors[flow]
+    b = torch.as_tensor(np.random.default_rng(batch).standard_normal((batch, mf.n)),
+                        dtype=torch.float32, device=cuda)
+    before = (stack_matvec.launches, sweep_gather.launches)
+    got = multifrontal_solve(mf, b)
+    counts = (stack_matvec.launches - before[0], sweep_gather.launches - before[1])
+    want = multifrontal_solve_reference(mf, b)
+    torch.cuda.synchronize()
+    assert counts == mf.launches_per_solve()
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+    assert torch.equal(mf.solve(b), got)  # the factor's own route past FUSED_MAX_ROWS
 
 
 @pytest.mark.cuda
@@ -500,9 +637,10 @@ def _s_matrix(s_matrices, which, device, dtype):
     """One of S's test matrices on the card with its plan; "split_alone"'s
     dense row holds a tile of its own, past the column budget."""
     from flowcontrol_tpu_torch.core.stepper import csr_to_device
-    from flowcontrol_tpu_torch.ops.spmm import TILE_COLS
+    from flowcontrol_tpu_torch.ops.spmm import TILE_COLS, plan_of
 
     a = csr_to_device(s_matrices[which], device, dtype)
+    plan_of(a)
     if which == "split_alone":
         row0 = a.spmm_plan.tile_row0.cpu().tolist()
         assert 300 in row0 and row0[row0.index(300) + 1] == 301
@@ -587,6 +725,43 @@ def test_torch_cuda_s_one_kernel_no_copy(cuda, s_matrices):
         assert not any("copy" in n.lower() or "memcpy" in n.lower() for n in names), names
 
 
+@pytest.mark.cuda
+def test_torch_cuda_s_plan_on_first_product(cuda, s_matrices, pin_base_flows, tmp_path):
+    """A matrix on the card gets S's tile plan on its first batched product:
+    none after csr_to_device; a first product inside a CUDA graph capture
+    raises; the eager one builds it. A single-stream Stepper builds none in
+    its steps, and its first batched steps build the mass's and the BDF2
+    refinement operator's."""
+    from flowcontrol_tpu_torch.core.stepper import csr_to_device
+    from flowcontrol_tpu_torch.ops.spmm import csr_matmul_rowwise
+
+    a = csr_to_device(s_matrices["mass"], cuda, torch.float32)
+    x = torch.randn((64, a.shape[1]), device=cuda)
+    assert not hasattr(a, "spmm_plan")
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="tile plan"):
+        with torch.cuda.graph(graph):
+            csr_matmul(a, x)
+    assert not hasattr(a, "spmm_plan")
+    got = csr_matmul(a, x)
+    assert hasattr(a, "spmm_plan") and torch.equal(got, csr_matmul_rowwise(a, x))
+
+    mesh, u0, p0 = pin_base_flows["cylinder"]
+    fs = CylinderFlowSolver.make_default(mesh=mesh, path_out=tmp_path, device="cuda",
+                                         stepper_options=PATHS["multifrontal"])
+    fs._assign_steady_state(u0, p0)
+    fs.initialize_time_stepping()
+    st = fs.stepper
+    for _ in range(3):
+        fs.step(np.array([0.1, -0.1]))
+    mats = {"m": st._dev["m"], "a_refine": st._dev["a_refine"][st._order_idx[2]]}
+    assert not any(hasattr(m, "spmm_plan") for m in mats.values())
+    c = st.init_carry(fs._carry.u_n.expand(4, -1).contiguous())
+    for _ in range(2):  # the BDF1 step, then a BDF2 step
+        c, _ = st.step(c, torch.zeros((4, st.n_act), dtype=st.dtype, device=cuda))
+    assert all(hasattr(m, "spmm_plan") for m in mats.values())
+
+
 # ── The compiled entry points as CUDA graphs ─────────────────────────────────
 
 # (flow, solve path, batch): every path's captured step on the reference's
@@ -605,7 +780,7 @@ def _graph_kernels(path, batch):
     """The counted kernels a captured step of ``path`` at ``batch`` holds."""
     solve = {"dense": set(), "block": {block_lu_solve_fused},
              "multifrontal": ({mf_fused.multifrontal_solve_fused} if batch <= 8
-                              else {stack_matvec, gather_sum_sub})}[path]
+                              else {stack_matvec, sweep_gather})}[path]
     spmm = {csr_matmul, csr_residual} if batch > 1 else set()  # the mass, the residual
     return {nonlinear_convection} | solve | spmm
 

@@ -16,8 +16,9 @@ CPU with its factor cache off, so both packages factor from scratch.
   shapes (p, q in {8, 216, 744}) against an f64 einsum; P1's plain version
   against JAX ``_gather_sum0`` on real inbox tables (f32 summation order
   differs: 1e-6 of the largest term).
-- One solve calls K2 and P1 exactly ``launches_per_solve()`` times (the
-  count the chip smoke run asserts on the card).
+- One solve calls K2 and P1 (``sweep_gather``) exactly
+  ``launches_per_solve()`` times (the count the chip smoke run asserts on
+  the card).
 """
 
 import numpy as np
@@ -170,8 +171,9 @@ def test_torch_mf_solve_matches_jax_f64(bdf2_system, pairs, shape):
 
 
 def test_torch_mf_solve_launch_count(pairs, monkeypatch):
-    """One solve calls K2 3·stages − 1 times and P1 once per tabbed inbox
-    segment, the counts ``launches_per_solve`` gives."""
+    """One solve calls K2 3·stages − 1 times and P1 once per stage with an
+    inbox, once per stage for the boundary gather and once each for the
+    entry and exit permutations, the counts ``launches_per_solve`` gives."""
     _, mt = pairs("f32")
     calls = {"k2": 0, "p1": 0}
 
@@ -182,10 +184,11 @@ def test_torch_mf_solve_launch_count(pairs, monkeypatch):
         return wrapped
 
     monkeypatch.setattr(mft, "stack_matvec", counted("k2", mf_matvec.stack_matvec))
-    monkeypatch.setattr(mft, "gather_sum_sub", counted("p1", mf_matvec.gather_sum_sub))
+    monkeypatch.setattr(mft, "sweep_gather", counted("p1", mf_matvec.sweep_gather))
     mt.solve(torch.ones(mt.n))
     assert (calls["k2"], calls["p1"]) == mt.launches_per_solve()
-    assert calls["p1"] > 0
+    with_inbox = sum(1 for s in mt.stages if s.inbox)
+    assert with_inbox > 0 and calls["p1"] == with_inbox + len(mt.stages) + 2
 
 
 @pytest.mark.parametrize("m,p,q", [(1, 128, 128), (3, 256, 128), (5, 768, 1536), (2, 384, 2048)])

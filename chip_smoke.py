@@ -144,7 +144,52 @@ fails or no CUDA device is present:
     with F and through the per-stage sweep: torch.profiler over 10 eager
     ``Stepper.step`` calls each (a CUDA graph keeps the route it was
     captured with);
-22. the graph phases below, in sum.
+22. the graph phases below, in sum;
+23. the lid-driven cavity, single stream, on a card that holds nothing of
+    the earlier phases: ``LidCavityFlowSolver.make_default(Re=8000)`` on
+    ``cuda`` (f32) at ``lidcavity_mesh(64)``, 74,371 dofs (past the dense
+    range: the multifrontal solve through F), its committed base flow
+    where the mesh checksum matches (else the Newton continuation of
+    ``models/make_baseflow.py`` on the host, and the log says which), the
+    pressure pin among the BC dofs; 200 ``fs.step`` calls with the lid
+    moved (u = [0.05]) for 10 steps and 0 after; y and dE finite, exact
+    launches (K1 steps + 1, F one per solve, K2 and P1 none); the factor's
+    stages, stack bytes, max_front, F's grid and shared memory at rows 1
+    and 8;
+24. F against plain and the sweep on the lid cavity's factor, as phase 16;
+25. its 10-step field error against the host f64 splu loop (<= 5e-4);
+    25g its graph against eager;
+26. ``batch_run``'s traffic (``examples/lidcavity_workflows.py``): 8
+    copies of the state plus 1e-3 x seed-0 normal noise, zero control, 50
+    steps of ``rollout_open_loop`` through F at 8 rows (exact launches);
+    member 0 within MEMBER_TOL of its single-stream run; K1 at B = 1 on
+    the lid cavity's mesh;
+27. the fluidic pinball's MIMO closed loop, single stream:
+    ``PinballFlowSolver.make_default(Re=100)`` (rotation, 67,920 dofs,
+    ``force_substructure``), its committed base flow (top and bottom lift
+    antisymmetric within 5e-2), the example's initial condition (a bump at
+    (1, 0), radius 0.6, amplitude 0.01), 200 ``fs.step`` calls, the first
+    LQG_STEPS (6) with ``Controller.step`` of the committed 22-state 3 x 3
+    LQG in the loop, u = +K(y), then u = 0 (the compensator was synthesized
+    on the stock mesh; its own spectral radius is 4.50 a step, and on this
+    mesh the loop diverges within ~20 steps: |u| and dE of the closed loop
+    printed, nothing held about them); exact launches; the factor as phase
+    23;
+28. F against plain and the sweep on the pinball's factor;
+29. its 10-step field error (<= 5e-4); 29g its graph against eager;
+30. 256 copies of the state, each with the LQG at gain
+    ``linspace(0.5, 1.5, 256)`` on its output (a controller search's
+    traffic), LQG_STEPS steps of ``rollout_closed_loop(...,
+    feedback_sign=+1)`` through K2, P1 and S (exact launches); the u of
+    the members differ; member 0 within MEMBER_TOL of its single-stream
+    loop; 30g the graphed closed loop against the eager one;
+31. K2's wide instance and P1 at B = 256 on the pinball's stages and
+    tables, as phase 7; K1 at B = 1 on its mesh;
+32. the dense rule at 67,920 dofs: the pinball's default ('auto') Stepper
+    after the multifrontal one left the card: what it took, the peak
+    device memory of its f64 factorization, 60 steps of phase 27's loop
+    and its steps/s beside the multifrontal path's;
+33. the new graph phases in sum.
 
 ``fs.step`` runs ``Stepper.compiled_step``: from the second step of a run
 a CUDA graph of the step, so phases 3, 6, 10 and 17 time and count the
@@ -177,8 +222,10 @@ exact. Phase 3 also holds the device mass to the assembly's nonzero
 count.
 
 The line before the last is a JSON object describing each kernel (K1 at
-batch 1, 256 and 64; K2 at batch 1, 256 and 64; K3 at batch 1 and at
-batch 256; P1 at batch 256 and 64; F at the cylinder's and the cavity's
+batch 1, 256 and 64, and at batch 1 on the lid cavity's and the pinball's
+meshes; K2 at batch 1, 256 and 64, and at the pinball's 256; K3 at batch
+1 and at batch 256; P1 at batch 256 and 64, and at the pinball's 256; F
+at the cylinder's, the cavity's, the lid cavity's and the pinball's
 factor; P2, P3, P4;
 S's csr_matmul at batch 256, f32, with its f64 and cavity numbers beside
 them, and S's csr_residual at batch 256 with the cavity's beside):
@@ -501,10 +548,11 @@ def phase_breakdown(fs, st, dev) -> dict:
     return lib
 
 
-def run_path(fs, counters, u_on=(0.3, -0.2)) -> dict:
-    """Factorization + init_carry, then NUM_STEPS fs.step calls with the
-    controls u_on, then 0; every launch count set to 0 just before, read
-    just after."""
+def run_path(fs, counters, u_on=(0.3, -0.2), control=None, steps: int = NUM_STEPS) -> dict:
+    """Factorization + init_carry, then ``steps`` fs.step calls with the
+    controls u_on, then 0 (or, with ``control``, u = control(i, y) of step
+    i and the last measurement: a closed loop); every launch count set to 0
+    just before, read just after."""
     from flowcontrol_tpu_torch.core.stepper import carry_to_numpy
 
     for c in counters:
@@ -514,12 +562,13 @@ def run_path(fs, counters, u_on=(0.3, -0.2)) -> dict:
     st = fs.stepper  # factorization + init_carry
     torch.cuda.synchronize()
     t_factor = time.perf_counter() - t0
-    ys, carry10, t_steps0 = [], None, None
-    for i in range(NUM_STEPS):
+    ys, us, carry10, t_steps0 = [], [], None, None
+    for i in range(steps):
         if i == CTRL_STEPS:
             torch.cuda.synchronize()
             t_steps0 = time.perf_counter()
-        ys.append(fs.step(controls(i, u_on)))
+        us.append(controls(i, u_on) if control is None else control(i, fs.y_meas))
+        ys.append(fs.step(us[-1]))
         if i + 1 == CTRL_STEPS:
             carry10 = carry_to_numpy(fs._carry)
     torch.cuda.synchronize()
@@ -527,10 +576,10 @@ def run_path(fs, counters, u_on=(0.3, -0.2)) -> dict:
     launches = [c.launches for c in counters]
     ys = np.asarray(ys)
     de = fs.timeseries["dE"][1:]
-    if not (np.isfinite(ys).all() and np.isfinite(de).all() and len(de) == NUM_STEPS):
+    if not (np.isfinite(ys).all() and np.isfinite(de).all() and len(de) == steps):
         raise AssertionError("non-finite y or dE on the main path")
-    return dict(st=st, t_factor=t_factor, ys=ys, de=de, carry10=carry10, launches=launches,
-                sps=(NUM_STEPS - CTRL_STEPS) / t_loop,
+    return dict(st=st, t_factor=t_factor, ys=ys, us=np.asarray(us), de=de, carry10=carry10,
+                launches=launches, sps=(steps - CTRL_STEPS) / t_loop,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -1024,7 +1073,9 @@ def phase_fused(mf, tag: str) -> dict:
     # device time of F: CUDA events around launches queued behind a device
     # sleep (torch.profiler's per-kernel time under-reads back-to-back
     # cooperative launches: 0.31-0.40 ms at the cylinder against 0.62 from
-    # these events and 0.64-0.66 inside a profiled step); the sweep's from
+    # these events and 0.64-0.66 inside a profiled step; after the graph
+    # phases a window of F launches alone came back with no device record
+    # at all three times running, so F is not timed by it); the sweep's from
     # the profiler (its host enqueue outlasts any sleep). Both also as
     # CUDA-event spans of back-to-back calls, dispatch gaps included: the
     # time per solve a caller sees. Widths 1 (the main path's), 4 and 8.
@@ -1038,7 +1089,6 @@ def phase_fused(mf, tag: str) -> dict:
                  span=cuda_time_ms(lambda: multifrontal_solve_fused(mf, b), reps=20),
                  sweep_span=cuda_time_ms(lambda: multifrontal_solve(mf, b), reps=20))
         if rows == 1:
-            w["profiler_ms"] = device_ms([lambda: multifrontal_solve_fused(mf, b)])
             w["plain_ms"] = device_ms([lambda: multifrontal_solve_fused_plain(mf, b)], reps=5)
         widths[rows] = w
         log(f"{tag}: rows={rows} per solve: F device {w['ms']:.4f} ms (queued events), per-stage "
@@ -1055,8 +1105,8 @@ def phase_fused(mf, tag: str) -> dict:
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
     g = fused_grid(1, mf.max_front, len(mf.stages))
     g8 = fused_grid(8, mf.max_front, len(mf.stages))
-    log(f"{tag}: F rows=1 device time per solve {res['ms']:.4f} ms (profiler "
-        f"{widths[1]['profiler_ms']:.4f} ms), plain {res['plain_ms']:.4f} ms, per-stage sweep "
+    log(f"{tag}: F rows=1 device time per solve {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, per-stage sweep "
         f"{res['sweep_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
         f"{nbytes / 1e9:.4f} GB, {nbytes / (res['ms'] * 1e-3) / 1e12:.2f} TB/s achieved, "
         f"{res['bound_ms'] / res['ms']:.3f} of bound); rows 8 at {widths[8]['ms'] / res['ms']:.2f}x "
@@ -1271,16 +1321,17 @@ def phase_graph_single(fs, st, path: str, tag: str, reps: int = 100) -> dict:
                         st.graph_pool_bytes(), 1)
 
 
-def phase_graph_rollout(st, carry, path: str, tag: str, k_mats=None, y0=None) -> dict:
-    """A batched rollout of BATCH_STEPS - 1 steps from ``carry`` (past its
+def phase_graph_rollout(st, carry, path: str, tag: str, k_mats=None, y0=None,
+                        feedback_sign: float = -1.0, steps: int = BATCH_STEPS - 1) -> dict:
+    """A batched rollout of ``steps`` steps from ``carry`` (past its
     first step): make_rollout_open_loop (``k_mats`` None, seeded controls)
-    or make_rollout_closed_loop (controllers ``k_mats`` from ``y0``)
+    or make_rollout_closed_loop (controllers ``k_mats`` from ``y0``, fed
+    ``feedback_sign`` times y)
     against the eager loop of Stepper.step (and the controller's products):
     outputs and final carry held bit for bit; aggregate steps/s in turns;
     host launch calls and device kernels per step; device time per step
     from queued CUDA events around a whole rollout, busy share; the graph
     pool's bytes."""
-    steps = BATCH_STEPS - 1
     batch = carry.u_n.shape[0]
     dev = st.device
     if k_mats is None:
@@ -1303,7 +1354,7 @@ def phase_graph_rollout(st, carry, path: str, tag: str, k_mats=None, y0=None) ->
     else:
         mats = [torch.as_tensor(m, dtype=st.dtype, device=dev) for m in k_mats]
         y0 = torch.as_tensor(y0, dtype=st.dtype, device=dev)
-        roll = st.make_rollout_closed_loop(steps)
+        roll = st.make_rollout_closed_loop(steps, feedback_sign)
 
         def graph_run():
             c, (ys, des, us, _) = roll(carry, mats, y0)
@@ -1318,7 +1369,7 @@ def phase_graph_rollout(st, carry, path: str, tag: str, k_mats=None, y0=None) ->
                 return torch.einsum("...ij,...j->...i", a, v)
 
             for _ in range(steps):
-                fb = -y
+                fb = feedback_sign * y
                 u = mv(cd, xk) + mv(dd, fb)
                 xk = mv(ad, xk) + mv(bd, fb)
                 c, o = st.step(c, u)
@@ -1507,22 +1558,412 @@ def phase_spmm(st, tag: str, batch: int) -> dict:
     return out
 
 
-def cavity_base_flow(fs) -> tuple[str, float]:
-    """The cavity's base flow: the committed file when its mesh checksum
-    matches this mesh, else Picard then Newton on the host (the JAX tests'
-    and bench's recipe). Returns (source, seconds)."""
-    from flowcontrol_tpu_torch.models.cavity import committed_baseflow
+def base_flow(fs) -> tuple[str, float]:
+    """``fs``'s base flow: the committed file when its mesh checksum matches
+    this mesh, else its recipe of ``models/make_baseflow.py`` on the host
+    (the cavity: Picard (10) + Newton (10); the lid cavity: Newton
+    continuation in Re; the pinball: Picard (15) + Newton (10)), and the
+    log says which. Returns (source, seconds)."""
+    from flowcontrol_tpu_torch.models import make_baseflow
+    from flowcontrol_tpu_torch.models.baseflows import committed_baseflow
 
     t0 = time.perf_counter()
     path = committed_baseflow(fs)
     if path is not None:
         fs.load_steady_state(path)
         return f"loaded {path.name} (mesh checksum matches)", time.perf_counter() - t0
-    fs.compute_steady_state(u_ctrl=[0.0], method="picard", max_iter=10, tol=1e-7)
-    fs.compute_steady_state(u_ctrl=[0.0], method="newton", initial_guess=fs.fields.UP0,
-                            max_iter=10)
-    return ("computed on the host: Picard (10) + Newton (10); no committed file matches "
-            "this mesh's checksum"), time.perf_counter() - t0
+    done, stages = make_baseflow.RECIPES[fs.BASEFLOW_NAME](fs.params_save.path_out)
+    fs._assign_steady_state(done.fields.U0, done.fields.P0)
+    return (f"computed on the host: {', '.join(name for name, _ in stages)}; no committed "
+            f"file matches this mesh's checksum"), time.perf_counter() - t0
+
+
+def kernel_row(name, source, replaces, launches, r, library_ms, **extra) -> dict:
+    """One kernel's entry of the kernels line."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": library_ms, **extra}
+
+
+# ── The lid-driven cavity and the fluidic pinball (phases 23-33) ──────────────
+
+LID_RE = 8000
+LID_NDOFS = 74_371
+LID_U = 0.05  # the lid's perturbation for its first CTRL_STEPS steps
+LID_BATCH = 8  # examples/lidcavity_workflows.py batch_run: B = 8, 50 steps
+LID_BATCH_STEPS = 50
+PIN_RE = 100
+PIN_NDOFS = 67_920
+LIFT_TOL = 5e-2  # top and bottom lift antisymmetric (tests/integration/test_pinball.py)
+DENSE_STEPS = 60  # the pinball's dense path: steps/s over the last DENSE_STEPS - CTRL_STEPS
+DENSE_HELD_MAX = 1e9  # bytes the card may hold from earlier phases when phase 32 starts
+# the LQG's closed loop on the generated mesh: the compensator's own
+# spectral radius is 4.50 a step, and the full-order plant does not hold it
+# (u grows ~4.5x a step: |u| 2.2 at step 6, 372 at step 10, and the state
+# overflows within ~20 steps, on the host in f64), so it closes the loop
+# for LQG_STEPS steps
+LQG_STEPS = 6
+
+
+def fused_smem_bytes(mf, rows: int) -> int:
+    """F's dynamic shared memory per block at ``rows`` right-hand sides
+    (``csrc/mf_fused.cu`` ``smem_of``): every stage's descriptor words,
+    16-byte aligned, and one node vector of ``max_front`` floats for each of
+    the accumulator count's rows (1, 2, 4 or 8, the smallest that holds
+    them)."""
+    from flowcontrol_tpu_torch.ops.mf_fused import STAGE_WORDS
+
+    desc = -(-len(mf.stages) * STAGE_WORDS * 8 // 16) * 16
+    return desc + (1 << (rows - 1).bit_length()) * mf.max_front * 4
+
+
+def factor_report(tag: str, st, run: dict) -> None:
+    """The multifrontal factor of a new flow: host split, stages, stack
+    bytes, max_front and F's grid and shared memory at rows 1 and 8."""
+    from flowcontrol_tpu_torch.ops.mf_fused import F_BLOCK_THREADS, fused_grid, grid_syncs
+
+    mf = st._solvers[st._order_idx[2]]
+    t = mf.timings
+    log(f"{tag}: solve kinds {st._solver_kinds} (expected ['borrowed', 'multifrontal']), dtype "
+        f"{st.dtype}, refinement sweeps {st._refine}; host multifrontal s: ordering+f64 "
+        f"factorization {t['ordering+factorization']:.2f}, repack {t['repack']:.2f}, error probe "
+        f"{t['measure_err']:.2f}, tables {t['tables']:.2f}, upload {t['upload']:.2f}, total "
+        f"{t['total']:.2f}; factorization+init_carry {run['t_factor']:.2f}; peak device memory "
+        f"{run['peak_gb']:.2f} GB")
+    log(f"{tag}: {len(mf.stages)} stages (cylinder 19, open cavity 24), factor stacks "
+        f"{mf.factor_bytes / 1e9:.4f} GB (cylinder 0.459, open cavity 0.877), {mf.total_slots} "
+        f"slots, {mf.total_contrib} contributions, up to "
+        f"{max(len(s.segs) for s in mf.stages)} inbox segments a stage; measured per-solve error "
+        f"{mf.solve_err:.3e} (zero-sweep ceiling {mf.ZERO_SWEEP_ERR:g}); (m, e, b) per stage "
+        f"{[(s.m, s.e, s.b) for s in mf.stages]}")
+    for rows in (1, 8):
+        g = fused_grid(rows, mf.max_front, len(mf.stages))
+        log(f"{tag}: F rows={rows}: node vectors of max_front {mf.max_front} floats, "
+            f"{fused_smem_bytes(mf, rows)} bytes of shared memory a block, grid {g['blocks']} "
+            f"blocks of {F_BLOCK_THREADS} threads ({g['per_sm']} per SM x {g['sms']} SMs), "
+            f"{grid_syncs(mf)} grid syncs")
+
+
+def expect_launches(tag: str, got: list, want: list, what: str) -> None:
+    """Logs the launch counts of a run and fails unless they are ``want``."""
+    log(f"{tag}: launches K1/K2/P1/K3/F/S/R {got} (expected {want}: {what})")
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+
+
+def phase_lid_batch(fs, st, counters, tag: str) -> dict:
+    """``batch_run``'s traffic (examples/lidcavity_workflows.py): LID_BATCH
+    copies of the state, each plus 1e-3 times seed-0 normal noise, zero
+    control, LID_BATCH_STEPS steps of ``rollout_open_loop`` through F at
+    LID_BATCH rows (the launches counted); member 0 against its
+    single-stream run. The rate of the first rollout (S's plans and the
+    capture inside) and of a second one from the same states."""
+    up = fs._carry.u_n.double().cpu().numpy()
+    rng = np.random.default_rng(0)
+    batch = up[None, :] + 1e-3 * rng.standard_normal((LID_BATCH, up.shape[0]))
+    u_seq = np.zeros((LID_BATCH_STEPS, LID_BATCH, st.n_act))
+
+    def rollout():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, outs = st.rollout_open_loop(st.init_carry(batch), u_seq)
+        torch.cuda.synchronize()
+        return outs, LID_BATCH_STEPS * LID_BATCH / (time.perf_counter() - t0)
+
+    for c in counters:
+        c.launches = 0
+    outs, first = rollout()
+    launches = [c.launches for c in counters]
+    rates = [first, rollout()[1]]
+    if not (bool(torch.isfinite(outs.y).all() and torch.isfinite(outs.dE).all())
+            and not bool(outs.diverged.any())):
+        raise AssertionError(f"{tag}: a batch member is not finite")
+    _, one = st.rollout_open_loop(st.init_carry(batch[0]), u_seq[:, 0])
+    err = rel_err(outs.y[:, 0], one.y)[0]
+    de = outs.dE[-1].double().cpu().numpy()
+    log(f"{tag}: B={LID_BATCH}, {LID_BATCH_STEPS} steps through F at {LID_BATCH} rows: "
+        f"{rates[0]:.1f} aggregate steps/s with S's first plans and the capture, {rates[1]:.1f} "
+        f"in a second rollout ({card_line()}); final dE per member "
+        f"{np.array2string(de, precision=4)}; member 0 against its single-stream run: y "
+        f"max|b-s|/max|s| {err:.3e} (tol {MEMBER_TOL:g})")
+    if not err <= MEMBER_TOL:
+        raise AssertionError(f"{tag}: member 0 against its single-stream run: {err:.3e}")
+    return dict(sps=rates[1], launches=launches)
+
+
+def lqg_population(k, dt: float):
+    """The LQG compensator ``k`` (discrete-native) at BATCH gains
+    ``linspace(0.5, 1.5)`` on its output: a controller search's traffic.
+    Returns (gains, stacked f32 k_mats)."""
+    ad, bd, cd, dd = k.discrete(dt, dtype=np.float32)
+    gains = np.linspace(0.5, 1.5, BATCH, dtype=np.float32)
+    return gains, (np.tile(ad, (BATCH, 1, 1)), np.tile(bd, (BATCH, 1, 1)),
+                   gains[:, None, None] * cd, gains[:, None, None] * dd)
+
+
+def phase_pinball_batch(fs, st, k, counters, tag: str) -> dict:
+    """BATCH copies of the pinball's state, each with the LQG at its gain,
+    through ``init_carry`` + ``rollout_closed_loop(..., feedback_sign=+1)``
+    for LQG_STEPS steps (the per-stage sweep: K2, P1 and S); member 0
+    against a single-stream ``Controller.step`` + ``fs.step`` loop at its
+    gain."""
+    from flowcontrol_tpu_torch.core.controller import Controller
+
+    dt = fs.params_time.dt
+    gains, k_mats = lqg_population(k, dt)
+    up = fs._carry.u_n.double().cpu().numpy()
+    y0 = np.tile(fs.y_meas, (BATCH, 1))
+    up_b = torch.as_tensor(up, dtype=st.dtype, device=st.device).expand(BATCH, -1).contiguous()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, (ys, des, us, divs) = st.rollout_closed_loop(st.init_carry(up_b), k_mats, y0,
+                                                        LQG_STEPS, feedback_sign=1.0)
+    torch.cuda.synchronize()
+    sps = LQG_STEPS * BATCH / (time.perf_counter() - t0)
+    launches = [c.launches for c in counters]
+    spread = float((us[:, 0] - us[:, -1]).abs().max())
+    if not (bool(torch.isfinite(des).all() and torch.isfinite(ys).all()) and spread > 0
+            and not bool(divs.any()) and us.shape == (LQG_STEPS, BATCH, 3)):
+        raise AssertionError(f"{tag}: closed-loop rollout not finite, or u equal across members")
+    ad, bd, cd, dd = k.discrete(dt)
+    k0 = Controller.from_matrices(A=ad, B=bd, C=float(gains[0]) * cd, D=float(gains[0]) * dd,
+                                  dt=dt)
+    fs._carry = st.init_carry(up)
+    y, ys1, us1 = fs.y_meas.copy(), [], []
+    for _ in range(LQG_STEPS):
+        u = k0.step(y, dt)
+        y = fs.step(u_ctrl=u)
+        ys1.append(y)
+        us1.append(u)
+    err_y = rel_err(ys[:, 0].double().cpu(), torch.as_tensor(np.asarray(ys1)))[0]
+    err_u = rel_err(us[:, 0].double().cpu(), torch.as_tensor(np.asarray(us1)))[0]
+    log(f"{tag}: B={BATCH} LQG gains, {LQG_STEPS} steps: {sps:.1f} aggregate steps/s (the "
+        f"first capture and S's first plans included); dE finite, at the last step "
+        f"{float(des[-1].min()):.3e} to {float(des[-1].max()):.3e}; max|u| "
+        f"{float(us.abs().max()):.3e}, u of members 0 and {BATCH - 1} differ by {spread:.3e}; "
+        f"member 0 against the single-stream Controller.step + fs.step loop (gain "
+        f"{float(gains[0]):g}), relative: y {err_y:.3e}, u {err_u:.3e} (tol {MEMBER_TOL:g})")
+    if not max(err_y, err_u) <= MEMBER_TOL:
+        raise AssertionError(f"{tag}: member 0 against its single-stream loop: {err_y}, {err_u}")
+    return dict(sps=sps, launches=launches, carry=carry, y_last=ys[-1], k_mats=k_mats)
+
+
+def graph_summary(graphs: dict, tag: str, card: str) -> None:
+    """One line per graph phase: eager and graph steps/s, busy shares, host
+    launch calls, the replay's check and the pool."""
+    for name, g in graphs.items():
+        log(f"{tag}: {name}: eager {np.mean(g['rates']['eager']):.1f}, graph "
+            f"{np.mean(g['rates']['graph']):.1f} steps/s (graph / eager "
+            f"{np.mean(g['rates']['graph']) / np.mean(g['rates']['eager']):.3f}); busy share "
+            f"eager {g['busy']['eager']:.3f}, graph {g['busy']['graph']:.3f}; host launch calls "
+            f"per step {g['host'][0]:.1f} -> {g['host'][1]:.1f}; replay {g['check']}; pool "
+            f"{g['pool'] / 1e6:.1f} MB ({card})")
+
+
+def free_card() -> None:
+    """Collect what the dropped solvers held and give the cached blocks back
+    to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def new_flows(counters, card: str) -> tuple[list, list]:
+    """Phases 23-33: the lid-driven cavity and the fluidic pinball at their
+    default meshes. Returns kernel S's launches there ([csr_matmul,
+    csr_residual]) and their rows of the kernels line."""
+    from flowcontrol_tpu_torch.core.actuator import CYLINDER_ACTUATION_MODE
+    from flowcontrol_tpu_torch.core.controller import Controller
+    from flowcontrol_tpu_torch.core.stepper import dense_lu_max_dofs_device
+    from flowcontrol_tpu_torch.models.lidcavity import LidCavityFlowSolver
+    from flowcontrol_tpu_torch.models.pinball import PINBALL_LQG_RE100, PinballFlowSolver
+
+    dev = torch.device("cuda", 0)
+    graphs = {}
+
+    # ── phase 23: the lid-driven cavity, single stream ───────────────────────
+    t0 = time.perf_counter()
+    fl = LidCavityFlowSolver.make_default(Re=LID_RE, num_steps=NUM_STEPS, device="cuda")
+    t_mesh = time.perf_counter() - t0
+    if fl.space.n_dofs != LID_NDOFS:
+        raise AssertionError(f"lid cavity default mesh has {fl.space.n_dofs} dofs, expected "
+                             f"{LID_NDOFS}")
+    src, t_base = base_flow(fl)
+    fl.initialize_time_stepping()
+    lid = run_path(fl, counters, u_on=(LID_U,))
+    stl = lid["st"]
+    oil = stl._order_idx[2]
+    mfl = stl._solvers[oil]
+    pin = 2 * fl.space.n_vnodes
+    log(f"phase 23: lid cavity Re={LID_RE}: mesh {fl.mesh.num_cells} cells, {fl.space.n_dofs} "
+        f"dofs ({fl.space.n_vel_dofs} velocity + {fl.space.n_pressure_dofs} pressure); mesh+spaces "
+        f"{t_mesh:.2f} s; base flow {src} in {t_base:.2f} s, max|U0| "
+        f"{np.abs(fl.fields.U0).max():.6f}; pressure dof {pin} pinned: {pin in stl.bcs.dofs}")
+    factor_report("phase 23", stl, lid)
+    log(f"phase 23: {NUM_STEPS} steps (u = [{LID_U}] for {CTRL_STEPS}, then 0), single-stream "
+        f"{lid['sps']:.2f} steps/s over the last {NUM_STEPS - CTRL_STEPS} ({card}); y[-1] = "
+        f"{lid['ys'][-1].tolist()}, dE[-1] = {lid['de'][-1]:.6e}")
+    solves = (1 + stl.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + stl._refine.get(oil, 0))
+    expect_launches("phase 23", lid["launches"], [NUM_STEPS + 1, 0, 0, 0, solves, 0, 0],
+                    f"{solves} solves, each one launch of F")
+    if (pin not in stl.bcs.dofs or stl._solver_kinds != ["borrowed", "multifrontal"]
+            or fl.params_solver.stepper_options or not mfl.takes_fused(1)):
+        raise AssertionError(f"lid cavity: pin {pin in stl.bcs.dofs}, kinds {stl._solver_kinds}")
+
+    # ── phase 24: F against plain on the lid cavity's factor ─────────────────
+    f_lid = phase_fused(mfl, "phase 24")
+
+    # ── phase 25: accuracy against host f64; the graph against eager ─────────
+    accuracy(HostF64Loop(fl), stl, lid["carry10"], "phase 25")
+    graphs["lid cavity multifrontal B=1"] = phase_graph_single(fl, stl, "multifrontal",
+                                                               "phase 25g")
+
+    # ── phase 26: batch_run's traffic through F at LID_BATCH rows ────────────
+    lidb = phase_lid_batch(fl, stl, counters, "phase 26")
+    solves_b = (1 + stl.BORROW_ITERS) + (LID_BATCH_STEPS - 1) * (1 + stl._refine.get(oil, 0))
+    expect_launches("phase 26", lidb["launches"],
+                    [LID_BATCH_STEPS + 1, 0, 0, 0, solves_b,
+                     *spmm_launches(stl, LID_BATCH_STEPS, True)],
+                    f"{solves_b} solves, each one launch of F at {LID_BATCH} rows")
+    k1_lid = phase_kernel(fl.space, fl.geom, dev, widths=(1,), tag="phase 26")
+    n_lid = mfl.n
+    del fl, stl, mfl, lid["st"]
+    free_card()
+
+    # ── phase 27: the pinball, single-stream MIMO closed loop ────────────────
+    t0 = time.perf_counter()
+    fp = PinballFlowSolver.make_default(
+        Re=PIN_RE, num_steps=NUM_STEPS, device="cuda",
+        mode_actuation=CYLINDER_ACTUATION_MODE.ROTATION,
+        stepper_options={"force_substructure": True})
+    t_mesh = time.perf_counter() - t0
+    if fp.space.n_dofs != PIN_NDOFS:
+        raise AssertionError(f"pinball default mesh has {fp.space.n_dofs} dofs, expected "
+                             f"{PIN_NDOFS}")
+    src, t_base = base_flow(fp)
+    coeffs = fp.compute_force_coefficients(fp.fields.U0, fp.fields.P0)
+    (cl_top, cd_top), (cl_bot, cd_bot) = coeffs["actuator_top"], coeffs["actuator_bot"]
+    log(f"phase 27: pinball Re={PIN_RE}: mesh {fp.mesh.num_cells} cells, {fp.space.n_dofs} dofs; "
+        f"mesh+spaces {t_mesh:.2f} s; base flow {src} in {t_base:.2f} s; force coefficients "
+        + ", ".join(f"{k} Cl {cl:.6f} Cd {cd:.6f}" for k, (cl, cd) in coeffs.items())
+        + f"; top + bottom lift {cl_top + cl_bot:.3e} (tol {LIFT_TOL:g})")
+    if not (abs(cl_top + cl_bot) <= LIFT_TOL and cd_top > 0 and cd_bot > 0):
+        raise AssertionError(f"pinball lift not antisymmetric: {cl_top}, {cl_bot}")
+    # the example's initial condition where no mode file fits the mesh
+    # (examples/run_pinball_feedback.py)
+    fp.params_ic.xloc, fp.params_ic.yloc = 1.0, 0.0
+    fp.params_ic.radius, fp.params_ic.amplitude = 0.6, 0.01
+    fp.initialize_time_stepping()
+    k = Controller.from_file(PINBALL_LQG_RE100)
+    dt = fp.params_time.dt
+
+    def lqg(i, y):  # u = +K(y) for LQG_STEPS steps, then the loop is opened
+        return k.step(y, dt) if i < LQG_STEPS else np.zeros(3)
+
+    pinr = run_path(fp, counters, control=lqg)
+    stp = pinr["st"]
+    oip = stp._order_idx[2]
+    mfp = stp._solvers[oip]
+    de = pinr["de"]
+    rho = float(np.abs(np.linalg.eigvals(k.A)).max())
+    log(f"phase 27: MIMO LQG ({k.nstates} states, {k.noutputs} x {k.ninputs}, discrete at dt "
+        f"{k.native_dt}, its own spectral radius {rho:.4f}), u = +K(y) through Controller.step + "
+        f"fs.step for {LQG_STEPS} steps, then u = 0, {NUM_STEPS} steps in all: single-stream "
+        f"{pinr['sps']:.2f} steps/s over the last {NUM_STEPS - CTRL_STEPS} ({card}); |u| per "
+        f"closed-loop step {np.abs(pinr['us'][:LQG_STEPS]).max(axis=1).round(6).tolist()}; dE "
+        f"over the closed loop {de[:LQG_STEPS].tolist()} (measured, not held: the compensator "
+        f"was synthesized on the stock mesh), dE[-1] {de[-1]:.6e}; y[-1] = "
+        f"{pinr['ys'][-1].tolist()}")
+    factor_report("phase 27", stp, pinr)
+    solves = (1 + stp.BORROW_ITERS) + (NUM_STEPS - 1) * (1 + stp._refine.get(oip, 0))
+    expect_launches("phase 27", pinr["launches"], [NUM_STEPS + 1, 0, 0, 0, solves, 0, 0],
+                    f"{solves} solves, each one launch of F")
+    if stp._solver_kinds != ["borrowed", "multifrontal"] or not mfp.takes_fused(1):
+        raise AssertionError(f"pinball solve kinds {stp._solver_kinds}")
+
+    # ── phase 28: F against plain on the pinball's factor ────────────────────
+    f_pin = phase_fused(mfp, "phase 28")
+
+    # ── phase 29: accuracy against host f64; the graph against eager ─────────
+    accuracy(HostF64Loop(fp), stp, pinr["carry10"], "phase 29")
+    graphs["pinball multifrontal B=1"] = phase_graph_single(fp, stp, "multifrontal", "phase 29g")
+
+    # ── phase 30: BATCH LQG gains through the per-stage sweep ────────────────
+    pinb = phase_pinball_batch(fp, stp, k, counters, "phase 30")
+    k2p, p1p = mfp.launches_per_solve()
+    refine = stp._refine.get(oip, 0)
+    solves_b = (1 + stp.BORROW_ITERS) + (LQG_STEPS - 1) * (1 + refine)
+    expect_launches("phase 30", pinb["launches"],
+                    [LQG_STEPS + 1, solves_b * k2p, solves_b * p1p, 0, 0,
+                     *spmm_launches(stp, LQG_STEPS, True)],
+                    f"{solves_b} solves x {k2p} K2 and {p1p} P1")
+    graphs[f"pinball multifrontal B={BATCH} closed (LQG)"] = phase_graph_rollout(
+        stp, pinb["carry"], "multifrontal", "phase 30g", k_mats=pinb["k_mats"],
+        y0=pinb["y_last"], feedback_sign=1.0, steps=LQG_STEPS - 1)
+
+    # ── phase 31: K2 and P1 at the pinball's B = BATCH; K1 on its mesh ───────
+    k2_pin = phase_k2_wide(mfp, BATCH, "phase 31")
+    p1_pin = phase_p1(mfp, BATCH, 1 + refine, "phase 31")
+    k1_pin = phase_kernel(fp.space, fp.geom, dev, widths=(1,), tag="phase 31")
+    n_pin, mf_sps, pin_b_launches = mfp.n, pinr["sps"], pinb["launches"]
+    u0, p0 = fp.fields.U0, fp.fields.P0
+    del fp, stp, mfp, pinb, pinr["st"]
+    free_card()
+
+    # ── phase 32: the dense rule at the pinball's width ──────────────────────
+    limit = dense_lu_max_dofs_device(dev)
+    fd = PinballFlowSolver.make_default(Re=PIN_RE, num_steps=DENSE_STEPS, device="cuda",
+                                        mode_actuation=CYLINDER_ACTUATION_MODE.ROTATION)
+    fd._assign_steady_state(u0, p0)
+    fd.params_ic.xloc, fd.params_ic.yloc = 1.0, 0.0
+    fd.params_ic.radius, fd.params_ic.amplitude = 0.6, 0.01
+    fd.initialize_time_stepping()
+    k.reset()
+    free_b, total_b = torch.cuda.mem_get_info(dev)
+    held = torch.cuda.memory_allocated(dev)
+    if held > DENSE_HELD_MAX:  # the phase measures what the dense path alone allocates
+        raise AssertionError(f"phase 32: {held / 1e9:.2f} GB already on the card")
+    dense = run_path(fd, counters, control=lqg, steps=DENSE_STEPS)
+    std = dense["st"]
+    log(f"phase 32: the dense rule (dense_lu_max_dofs_device) allows {limit} dofs on this card "
+        f"({total_b / 1e9:.2f} GB, {free_b / 1e9:.2f} GB free and {held / 1e9:.3f} GB allocated "
+        f"before); 'auto' at {PIN_NDOFS} dofs "
+        f"took {std._solver_kinds} ({type(std._solvers[-1]).__name__}); peak device memory of "
+        f"the factorization and init_carry {dense['peak_gb']:.2f} GB (A and LU in f64, 16 n^2 = "
+        f"{16 * PIN_NDOFS ** 2 / 1e9:.2f} GB): it fits; factorization+init_carry "
+        f"{dense['t_factor']:.2f} s; {DENSE_STEPS} steps of the LQG loop, single-stream "
+        f"{dense['sps']:.2f} steps/s over the last {DENSE_STEPS - CTRL_STEPS} against the "
+        f"multifrontal path's {mf_sps:.2f} ({card})")
+    expect_launches("phase 32", dense["launches"], [DENSE_STEPS + 1, 0, 0, 0, 0, 0, 0],
+                    "the dense LU: K1 only")
+    del fd, std, dense
+    free_card()
+
+    # ── phase 33: the new graph phases in sum ────────────────────────────────
+    graph_summary(graphs, "phase 33", card)
+
+    src = "flowcontrol_tpu_torch/csrc/"
+    k1, k2 = "flowcontrol_tpu/ops/pallas_nl.py:136", "flowcontrol_tpu/ops/pallas_mf_matvec.py:79"
+    f_tpu, p1_tpu = "flowcontrol_tpu/solvers/multifrontal.py:1202", "tools/pallas_gather_probe.py:50"
+    s_launches = [lidb["launches"][k] + pin_b_launches[k] for k in (5, 6)]
+    return s_launches, [
+        kernel_row("K1 nl_convection lid cavity", src + "nl_convection.cu", k1,
+                   lid["launches"][0], k1_lid, None),
+        kernel_row("K1 nl_convection pinball", src + "nl_convection.cu", k1,
+                   pinr["launches"][0], k1_pin, None),
+        kernel_row(f"K2 stack_matvec B={BATCH} pinball", src + "mf_sweep.cu", k2,
+                   pin_b_launches[1], k2_pin, k2_pin["library_ms"]),
+        kernel_row(f"P1 sweep_gather B={BATCH} pinball", src + "mf_sweep.cu", p1_tpu,
+                   pin_b_launches[2], p1_pin, p1_pin["library_ms"],
+                   **{k: p1_pin[k] for k in P1_EXTRA}),
+        kernel_row(f"F multifrontal_solve_fused lid cavity n={n_lid}", src + "mf_fused.cu", f_tpu,
+                   lid["launches"][4] + lidb["launches"][4], f_lid, None,
+                   sweep_ms=f_lid["sweep_ms"]),
+        kernel_row(f"F multifrontal_solve_fused pinball n={n_pin}", src + "mf_fused.cu", f_tpu,
+                   pinr["launches"][4], f_pin, None, sweep_ms=f_pin["sweep_ms"]),
+    ]
 
 
 def main() -> int:
@@ -1635,8 +2076,7 @@ def main() -> int:
     # ── phase 6: the multifrontal main path ──────────────────────────────────
     del st, dense["st"]
     fs._stepper = fs._carry = fs._step_compiled = None  # the dense factor leaves the card
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card()
     t0 = time.perf_counter()
     fs2 = CylinderFlowSolver.make_default(
         Re=RE, num_steps=NUM_STEPS, device="cuda",
@@ -1810,14 +2250,13 @@ def main() -> int:
     probes = phase_probes(dev)
     del fs3, st3, blu, carry_b, open_blk, blk["st"]  # the block factor leaves the card
     fs._stepper = fs._carry = fs._step_compiled = None
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card()
 
     # ── phase 17: the open cavity, single stream ─────────────────────────────
     t0 = time.perf_counter()
     fc = CavityFlowSolver.make_default(Re=CAV_RE, num_steps=NUM_STEPS, device="cuda")
     t_mesh_c = time.perf_counter() - t0
-    base_src, t_base_c = cavity_base_flow(fc)
+    base_src, t_base_c = base_flow(fc)
     fc.initialize_time_stepping()
     cav = run_path(fc, counters, u_on=(CAV_U,))
     stc = cav["st"]
@@ -1906,19 +2345,18 @@ def main() -> int:
         mf_module.FUSED_MAX_ROWS = fused_max_rows
 
     # ── phase 22: the compiled entry points' graphs against eager, in sum ──
-    for name, g in graphs.items():
-        log(f"phase 22: {name}: eager {np.mean(g['rates']['eager']):.1f}, graph "
-            f"{np.mean(g['rates']['graph']):.1f} steps/s (graph / eager "
-            f"{np.mean(g['rates']['graph']) / np.mean(g['rates']['eager']):.3f}); busy share "
-            f"eager {g['busy']['eager']:.3f}, graph {g['busy']['graph']:.3f}; host launch calls "
-            f"per step {g['host'][0]:.1f} -> {g['host'][1]:.1f}; replay {g['check']}; pool "
-            f"{g['pool'] / 1e6:.1f} MB ({card})")
+    graph_summary(graphs, "phase 22", card)
 
-    def row(name, source, replaces, launches, r, library_ms, **extra):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": library_ms, **extra}
+    # ── phases 23-33: the lid cavity and the pinball, on a card holding
+    # nothing else (phase 32 measures what the dense factorization takes)
+    n_cyl, n_cav = mf.n, mfc.n
+    del fs, fs2, st2, mf, fc, stc, mfc, mfp["st"], cav["st"], stp, f
+    for r in (open_mf, open_c):
+        del r["carry"], r["y_last"]
+    del r
+    free_card()
+    s_new, new_rows = new_flows(counters, card)
+    s_launches = [s_launches[0] + s_new[0], s_launches[1] + s_new[1]]
 
     src = "flowcontrol_tpu_torch/csrc/"
     f_launches = mfp["launches"][4] + cav["launches"][4]
@@ -1928,27 +2366,27 @@ def main() -> int:
     probe_src = "tools/pallas_gather_probe.py"
     log(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f} s wall")
     print(json.dumps({"kernels": [
-        row("K1 nl_convection", src + "nl_convection.cu",
+        kernel_row("K1 nl_convection", src + "nl_convection.cu",
             "flowcontrol_tpu/ops/pallas_nl.py:136", k1_launches, k1, None),
-        row(f"K1 nl_convection B={BATCH} cylinder", src + "nl_convection.cu",
+        kernel_row(f"K1 nl_convection B={BATCH} cylinder", src + "nl_convection.cu",
             "flowcontrol_tpu/ops/pallas_nl.py:136", k1_batched_launches,
             dict(max_abs_err=k1["max_abs_err"], **k1["widths"][BATCH]), None),
-        row(f"K1 nl_convection B={CAV_BATCH} cavity", src + "nl_convection.cu",
+        kernel_row(f"K1 nl_convection B={CAV_BATCH} cavity", src + "nl_convection.cu",
             "flowcontrol_tpu/ops/pallas_nl.py:136", open_c["launches"][0],
             dict(max_abs_err=k1_cav["max_abs_err"], **k1_cav["widths"][CAV_BATCH]), None),
-        row("K2 stack_matvec", src + "mf_sweep.cu",
+        kernel_row("K2 stack_matvec", src + "mf_sweep.cu",
             "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", k2_launches, k2_narrow,
             k2_narrow["library_ms"]),
-        row(f"K2 stack_matvec B={BATCH} cylinder", src + "mf_sweep.cu",
+        kernel_row(f"K2 stack_matvec B={BATCH} cylinder", src + "mf_sweep.cu",
             "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", k2_cyl_launches, k2_wide[BATCH],
             k2_wide[BATCH]["library_ms"]),
-        row(f"K2 stack_matvec B={CAV_BATCH} cavity", src + "mf_sweep.cu",
+        kernel_row(f"K2 stack_matvec B={CAV_BATCH} cavity", src + "mf_sweep.cu",
             "flowcontrol_tpu/ops/pallas_mf_matvec.py:79", open_c["launches"][1],
             k2_wide[CAV_BATCH], k2_wide[CAV_BATCH]["library_ms"]),
-        row("K3 block_lu_solve_fused B=1", src + "block_trisolve.cu",
+        kernel_row("K3 block_lu_solve_fused B=1", src + "block_trisolve.cu",
             "flowcontrol_tpu/ops/pallas_trisolve.py:127", blk["launches"][3], k3[1],
             k3[1]["library_ms"]),
-        row(f"K3 block_lu_solve_fused B={BATCH}", src + "block_trisolve.cu",
+        kernel_row(f"K3 block_lu_solve_fused B={BATCH}", src + "block_trisolve.cu",
             "flowcontrol_tpu/ops/pallas_trisolve.py:127", k3_batched_launches, k3[BATCH],
             k3[BATCH]["library_ms"]),
         # P1's rows: all its launches of one solve; library_ms is
@@ -1956,31 +2394,31 @@ def main() -> int:
         # inbox form); beside them the inbox launches against the earlier
         # per-segment kernel, the gather form against torch's int64 index,
         # and the sweep's device time outside K2 per solve now and before
-        row(f"P1 sweep_gather B={BATCH} cylinder", src + "mf_sweep.cu", probe_src + ":50",
+        kernel_row(f"P1 sweep_gather B={BATCH} cylinder", src + "mf_sweep.cu", probe_src + ":50",
             p1_cyl_launches, p1[BATCH], p1[BATCH]["library_ms"],
             **{k: p1[BATCH][k] for k in P1_EXTRA}),
-        row(f"P1 sweep_gather B={CAV_BATCH} cavity", src + "mf_sweep.cu", probe_src + ":50",
+        kernel_row(f"P1 sweep_gather B={CAV_BATCH} cavity", src + "mf_sweep.cu", probe_src + ":50",
             open_c["launches"][2], p1[CAV_BATCH], p1[CAV_BATCH]["library_ms"],
             **{k: p1[CAV_BATCH][k] for k in P1_EXTRA}),
-        row(f"F multifrontal_solve_fused cylinder n={mf.n}", src + "mf_fused.cu",
+        kernel_row(f"F multifrontal_solve_fused cylinder n={n_cyl}", src + "mf_fused.cu",
             "flowcontrol_tpu/solvers/multifrontal.py:1202", mfp["launches"][4], f_cyl, None,
             sweep_ms=f_cyl["sweep_ms"]),
-        row(f"F multifrontal_solve_fused cavity n={mfc.n}", src + "mf_fused.cu",
+        kernel_row(f"F multifrontal_solve_fused cavity n={n_cav}", src + "mf_fused.cu",
             "flowcontrol_tpu/solvers/multifrontal.py:1202", cav["launches"][4], f_cav, None,
             sweep_ms=f_cav["sweep_ms"]),
         # P2-P4 run on the main path as device functions inside every F
         # launch; their times are their own kernels' at the probe's shapes
-        row("P2 take_along_axis_lanes", src + "mf_fused.cu", probe_src + ":65", f_launches,
+        kernel_row("P2 take_along_axis_lanes", src + "mf_fused.cu", probe_src + ":65", f_launches,
             probes["P2"], probes["P2"]["library_ms"], launched_inside="F"),
-        row("P3 dynamic_slice_smem_offset", src + "mf_fused.cu", probe_src + ":77", f_launches,
+        kernel_row("P3 dynamic_slice_smem_offset", src + "mf_fused.cu", probe_src + ":77", f_launches,
             probes["P3"], probes["P3"]["library_ms"], launched_inside="F"),
-        row("P4 dynamic_offset_accum_store", src + "mf_fused.cu", probe_src + ":89",
+        kernel_row("P4 dynamic_offset_accum_store", src + "mf_fused.cu", probe_src + ":89",
             f_launches, probes["P4"], probes["P4"]["library_ms"], launched_inside="F"),
         # S replaces no Pallas kernel: it stands for the JAX stepper's XLA
         # operator applies. Its rows: the mass at B = BATCH (f32, with the
         # f64 operator's numbers beside it) and the fused residual at
         # B = BATCH, each with the cavity's at B = CAV_BATCH
-        row(f"S csr_matmul B={BATCH} mass f32", src + "csr_spmm.cu",
+        kernel_row(f"S csr_matmul B={BATCH} mass f32", src + "csr_spmm.cu",
             "flowcontrol_tpu/core/stepper.py:885", s_launches[0], spmm[BATCH]["f32"],
             spmm[BATCH]["f32"]["library_ms"], rowwise_ms=spmm[BATCH]["f32"]["rowwise_ms"],
             **{f"f64_{k}": spmm[BATCH]["f64"][k] for k in (
@@ -1988,12 +2426,13 @@ def main() -> int:
                 "bound_by")},
             **{f"cavity_B{CAV_BATCH}_{k}": spmm[CAV_BATCH]["f32"][k] for k in (
                 "ms", "rowwise_ms", "plain_ms", "library_ms", "bound_ms")}),
-        row(f"S csr_residual B={BATCH}", src + "csr_spmm.cu",
+        kernel_row(f"S csr_residual B={BATCH}", src + "csr_spmm.cu",
             "flowcontrol_tpu/core/stepper.py:885", s_launches[1], spmm[BATCH]["residual"], None,
             composition_ms=spmm[BATCH]["residual"]["composition_ms"],
             composition_rowwise_ms=spmm[BATCH]["residual"]["composition_rowwise_ms"],
             **{f"cavity_B{CAV_BATCH}_{k}": spmm[CAV_BATCH]["residual"][k] for k in (
                 "ms", "composition_ms", "composition_rowwise_ms", "plain_ms", "bound_ms")}),
+        *new_rows,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -12,9 +12,10 @@ with pure numpy + scipy.spatial.Delaunay:
 
 Zone layouts mirror the reference generators: cylinder 3-zone wake grading
 (ref: src/utils/mesh_generation/cylinder.py:11-25), cavity Sipp-Lebedev
-layout (cavity.py). Transcribed from ``flowcontrol_tpu/mesh/generation.py``
-(the cylinder, the open cavity and the structured rectangles; the lid
-cavity's and the pinball's domains come with their models).
+layout (cavity.py), unit-square lid cavity (lidcavity.py), pinball
+equilateral triangle of 3 cylinders (pinball.py). Transcribed from
+``flowcontrol_tpu/mesh/generation.py``: every generator gives the JAX
+package's mesh bit for bit.
 """
 
 from __future__ import annotations
@@ -229,6 +230,25 @@ def _delaunay_mesh(
     return mesh
 
 
+def mesh_quality(mesh: Mesh2D) -> dict:
+    """Min/mean radius-ratio quality (1 = equilateral) and min angle stats."""
+    p = mesh.coords[mesh.cells]
+    a = np.linalg.norm(p[:, 1] - p[:, 2], axis=1)
+    b = np.linalg.norm(p[:, 0] - p[:, 2], axis=1)
+    c = np.linalg.norm(p[:, 0] - p[:, 1], axis=1)
+    s = 0.5 * (a + b + c)
+    area = np.sqrt(np.maximum(s * (s - a) * (s - b) * (s - c), 0.0))
+    inradius = area / s
+    circum = a * b * c / np.maximum(4 * area, 1e-300)
+    q = 2 * inradius / circum
+    return {
+        "q_min": float(q.min()),
+        "q_mean": float(q.mean()),
+        "n_cells": mesh.num_cells,
+        "n_vertices": mesh.num_vertices,
+    }
+
+
 # ── Cylinder flow domain ─────────────────────────────────────────────────────
 
 CYLINDER_DEFAULT_PARAM = {
@@ -393,3 +413,107 @@ def cavity_mesh(**mesh_param) -> Mesh2D:
         lats.append((lat[inside(lat)], h))
     points = _merge_point_groups(bnd + lats)
     return _delaunay_mesh(points, inside, fixed)
+
+
+# ── Lid-driven cavity ────────────────────────────────────────────────────────
+
+
+def lidcavity_mesh(n: int = 64, diagonal: str = "crossed",
+                   stretch: float = 0.0) -> Mesh2D:
+    """Unit-square lid-driven cavity mesh (ref: mesh_generation/lidcavity.py).
+
+    ``stretch`` > 0 applies a tanh clustering of grid lines toward all four
+    walls (the reference grades its gmsh lid-cavity meshes in 3 wall bands);
+    the Re≳5000 steady states have Re^-1/2 wall layers that a uniform grid
+    cannot resolve. stretch≈2 shrinks the wall spacing ~4x at the cost of
+    ~2x coarser cells mid-cavity.
+    """
+    if stretch > 0.0:
+        s = np.linspace(-1.0, 1.0, n + 1)
+        t = 0.5 * (1.0 + np.tanh(stretch * s) / np.tanh(stretch))
+        t[0], t[-1] = 0.0, 1.0
+        return rectangle_mesh((0.0, 0.0), (1.0, 1.0), n, n, diagonal,
+                              x=t, y=t)
+    return unit_square_mesh(n, n, diagonal=diagonal)
+
+
+# ── Fluidic pinball ──────────────────────────────────────────────────────────
+
+PINBALL_DEFAULT_PARAM = {
+    # Three unit-diameter cylinders in an equilateral triangle of side 1.5D,
+    # pointing upstream (ref: mesh_generation/pinball.py). Front cylinder at
+    # (-1.5*cos(30°), 0); back two at (0, ±0.75).
+    "xinfa": -6.0,
+    "xinf": 20.0,
+    "yinf": 6.0,
+    "D": 1.0,
+    "n1": 10.0,
+    "n2": 5.0,
+    "n3": 1.2,
+    "segments": 180,
+}
+
+
+def pinball_centers(D: float = 1.0):
+    side = 1.5 * D
+    x_front = -side * np.cos(np.pi / 6)
+    return np.array(
+        [[x_front, 0.0], [0.0, side / 2], [0.0, -side / 2]], dtype=HOST_DTYPE
+    )
+
+
+def pinball_mesh(**mesh_param) -> Mesh2D:
+    prm = {**PINBALL_DEFAULT_PARAM, **mesh_param}
+    h1, h2, h3 = 1 / prm["n1"], 1 / prm["n2"], 1 / prm["n3"]
+    xinfa, xinf, yinf = prm["xinfa"], prm["xinf"], prm["yinf"]
+    r = prm["D"] / 2
+    centers = pinball_centers(prm["D"])
+    h_cyl = min(h1, 2 * np.pi * r / prm["segments"])
+
+    boundary = _rect_boundary(xinfa, -yinf, xinf, yinf, h3)
+    groups = []
+    fixed = [boundary]
+    for cx, cy in centers:
+        circ = _circle_points(cx, cy, r, max(prm["segments"], 16))
+        groups.append((circ, h_cyl))
+        fixed.append(circ)
+        rr, h = r, h_cyl
+        while rr < 2.0 * r:
+            rr += h
+            groups.append(
+                (_circle_points(cx, cy, rr, max(8, int(2 * np.pi * rr / h))), h)
+            )
+            h = min(h1, h * 1.3)
+    groups.append((boundary, h3))
+
+    def in_zone1(p):
+        return (p[:, 0] > -2.5) & (p[:, 0] < 4.0) & (np.abs(p[:, 1]) < 2.0)
+
+    def in_zone2(p):
+        return (p[:, 0] > -4.0) & (p[:, 0] < 14.0) & (np.abs(p[:, 1]) < 3.0)
+
+    lat1 = _hex_lattice(-2.5, 4.0, -2.0, 2.0, h1)
+    lat1 = lat1[in_zone1(lat1)]
+    lat2 = _hex_lattice(-4.0, 14.0, -3.0, 3.0, h2)
+    lat2 = lat2[in_zone2(lat2) & ~in_zone1(lat2)]
+    lat3 = _hex_lattice(xinfa, xinf, -yinf, yinf, h3)
+    lat3 = lat3[~in_zone2(lat3)]
+    groups += [(lat1, h1), (lat2, h2), (lat3, h3)]
+
+    points = _merge_point_groups(groups)
+    for cx, cy in centers:
+        rad = np.sqrt((points[:, 0] - cx) ** 2 + (points[:, 1] - cy) ** 2)
+        points = points[rad >= r - 1e-12]
+    points = points[
+        (points[:, 0] >= xinfa - 1e-9)
+        & (points[:, 0] <= xinf + 1e-9)
+        & (np.abs(points[:, 1]) <= yinf + 1e-9)
+    ]
+
+    def inside(p):
+        ok = np.ones(len(p), dtype=bool)
+        for cx, cy in centers:
+            ok &= np.sqrt((p[:, 0] - cx) ** 2 + (p[:, 1] - cy) ** 2) > r
+        return ok
+
+    return _delaunay_mesh(points, inside, np.concatenate(fixed))

@@ -16,7 +16,6 @@ multifrontal solve.
 
 from __future__ import annotations
 
-import hashlib
 import logging
 from pathlib import Path
 
@@ -34,31 +33,6 @@ from flowcontrol_tpu_torch.core.sensor import (
 
 logger = logging.getLogger(__name__)
 
-#: committed base flows: ``cavity_re<Re>_n<dofs>.npz`` with U0, P0 and the
-#: checksum of the mesh they were computed on
-BASEFLOW_DIR = Path(__file__).parent / "_baseflows"
-
-
-def mesh_checksum(mesh) -> str:
-    """sha256 of a mesh's vertex coordinates (float64) and cells (int64)."""
-    h = hashlib.sha256()
-    h.update(np.ascontiguousarray(mesh.coords, dtype=np.float64).tobytes())
-    h.update(np.ascontiguousarray(mesh.cells, dtype=np.int64).tobytes())
-    return h.hexdigest()
-
-
-def committed_baseflow(fs) -> Path | None:
-    """The committed base flow of ``fs``'s Reynolds number and mesh, or None
-    where no file matches the mesh's checksum (scipy's Delaunay may lay the
-    generated mesh out differently on another machine)."""
-    path = BASEFLOW_DIR / f"cavity_re{fs.params_flow.Re:g}_n{fs.space.n_dofs}.npz"
-    if not path.exists():
-        return None
-    with np.load(path, allow_pickle=False) as d:
-        if str(d["mesh_sha256"]) != mesh_checksum(fs.mesh):
-            return None
-    return path
-
 
 def default_cavity_mesh(**kwargs):
     """Generate the default open-cavity mesh in memory (26,440 cells,
@@ -70,6 +44,8 @@ def default_cavity_mesh(**kwargs):
 
 class CavityFlowSolver(FlowSolver):
     """Flow over an open cavity. Proposed Re=7500."""
+
+    BASEFLOW_NAME = "cavity"
 
     def _make_boundaries(self) -> dict:
         """10 boundaries (ref: cavityflowsolver.py:22-149)."""

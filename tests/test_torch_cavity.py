@@ -24,7 +24,7 @@ from flowcontrol_tpu_torch.core.sensor import sensor_matrix
 from flowcontrol_tpu_torch.fem.bc import BCSet
 from flowcontrol_tpu_torch.mesh.generation import cavity_mesh as cavity_mesh_t
 from flowcontrol_tpu_torch.models.cavity import CavityFlowSolver as CavT
-from flowcontrol_tpu_torch.models.cavity import committed_baseflow, mesh_checksum
+from flowcontrol_tpu_torch.models.baseflows import committed_baseflow, mesh_checksum
 
 torch.set_num_threads(1)
 
@@ -127,10 +127,10 @@ def test_torch_cavity_force_actuator_steps_match_jax(base, tmp_path):
 def test_torch_cavity_committed_baseflow_needs_matching_mesh(pair, tmp_path, monkeypatch):
     """A committed base flow is handed out only for the mesh it was computed
     on: the file's checksum must equal the mesh's."""
-    import flowcontrol_tpu_torch.models.cavity as cav
+    import flowcontrol_tpu_torch.models.baseflows as baseflows
 
     _, ft = pair
-    monkeypatch.setattr(cav, "BASEFLOW_DIR", tmp_path)
+    monkeypatch.setattr(baseflows, "BASEFLOW_DIR", tmp_path)
     assert committed_baseflow(ft) is None
     path = tmp_path / f"cavity_re7500_n{ft.space.n_dofs}.npz"
     np.savez_compressed(path, U0=np.zeros((ft.space.n_vnodes, 2)),

@@ -21,6 +21,10 @@ package, so it also runs on a GPU machine without them:
   steps and 3 cavity steps on the reference's coarse meshes, against the
   port's float64 host-LU run on the CPU from the port's own f64 base flow:
   field error below 1e-4 relative, y within rtol 5e-4 and atol 1e-6.
+- The same pin on the lid cavity (Re=1000, ``lidcavity_mesh(32)``, its
+  pressure pin among the BC dofs, 3 steps with the lid moved) and the
+  pinball (Re=30, the reference's coarse pinball mesh, 4 steps with the
+  three cylinders turning), through the multifrontal path (F).
 - Kernels K2 and P1 (``csrc/mf_sweep.cu``) against their plain torch
   versions at batch 1 and 4 (K2 also at 2 and 9, its other instances; at
   stage shapes that are multiples of 8 and one that is not; P1 on random
@@ -74,14 +78,17 @@ package, so it also runs on a GPU machine without them:
   matrices and widths, one counted launch per call.
 - The compiled entry points as CUDA graphs, on every path (dense,
   multifrontal through F at B = 1 and through K2/P1 at B = 256, block
-  through K3 at B = 1 and 256, the cavity's multifrontal at B = 1 and 64):
+  through K3 at B = 1 and 256, the cavity's multifrontal at B = 1 and 64,
+  the lid cavity's and the pinball's multifrontal at B = 1):
   ``compiled_step`` bitwise equal to ``Stepper.step`` step by step, its
   graph holding the path's kernels, each replay adding exactly the
   eager step's launches, a held carry keeping its values; 20-step
   ``make_rollout_open_loop`` and ``make_rollout_closed_loop`` bitwise
   equal to the eager loops; a graph of K1 over 100 replays bitwise equal
   to the eager call; a body that cannot be captured raises. The f32 pin
-  runs through ``compiled_step``'s graph.
+  runs through ``compiled_step``'s graph. The pinball's MIMO closed loop
+  with the committed 22-state 3 x 3 LQG (u = +K(y)), 6 graphed steps at
+  B = 2 (F) and B = 64 (K2, P1), bitwise equal to the eager loop.
 """
 
 import numpy as np
@@ -90,9 +97,17 @@ import torch
 
 from flowcontrol_tpu_torch.fem.assembly import CellGeometry, to_scipy_csr
 from flowcontrol_tpu_torch.mesh.dofmap import TaylorHoodSpace
-from flowcontrol_tpu_torch.mesh.generation import cavity_mesh, cylinder_mesh
+from flowcontrol_tpu_torch.core.actuator import CYLINDER_ACTUATION_MODE
+from flowcontrol_tpu_torch.mesh.generation import (
+    cavity_mesh,
+    cylinder_mesh,
+    lidcavity_mesh,
+    pinball_mesh,
+)
 from flowcontrol_tpu_torch.models.cavity import CavityFlowSolver
 from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
+from flowcontrol_tpu_torch.models.lidcavity import LidCavityFlowSolver
+from flowcontrol_tpu_torch.models.pinball import PINBALL_LQG_RE100, PinballFlowSolver
 from flowcontrol_tpu_torch.ops import mf_fused
 from flowcontrol_tpu_torch.ops.mf_matvec import (
     GatherPlan,
@@ -123,9 +138,18 @@ from flowcontrol_tpu_torch.solvers.multifrontal import MultifrontalLU, multifron
 from mf_sweep_reference import multifrontal_solve_reference
 
 COARSE = dict(yinf=5.0, xinf=15.0, xinfa=-5.0, n1=4.0, n2=2.0, n3=0.8, segments=80)
-# the reference's coarse meshes (tests/integration/conftest.py)
+# the reference's coarse meshes (tests/integration/conftest.py and, for the
+# lid cavity, tests/integration/test_lidcavity.py)
 MESHES = {"cylinder": lambda: cylinder_mesh(**COARSE),
           "cavity": lambda: cavity_mesh(n_coarse=12, n_mid=25, n_fine=50)}
+NEW_MESHES = {"lidcavity": lambda: lidcavity_mesh(32),
+              "pinball": lambda: pinball_mesh(n1=4.0, n2=2.0, n3=0.8, segments=60, xinf=14.0)}
+# each flow's solver, the Reynolds number of its coarse tests and its
+# make_default keywords
+FLOWS = {"cylinder": (CylinderFlowSolver, 100, {}), "cavity": (CavityFlowSolver, 7500, {}),
+         "lidcavity": (LidCavityFlowSolver, 1000, {}),
+         "pinball": (PinballFlowSolver, 30,
+                     {"mode_actuation": CYLINDER_ACTUATION_MODE.ROTATION})}
 
 
 @pytest.fixture
@@ -192,38 +216,53 @@ SOLVERS = {"dense": DeviceDenseLU, "multifrontal": MultifrontalLU, "block": Bloc
 
 @pytest.fixture(scope="module")
 def pin_base_flows(tmp_path_factory):
-    """The reference's coarse cylinder and cavity base flows, computed by
-    the port in float64 on the CPU with the reference's recipes (cylinder:
-    Picard 3 + Newton 10; cavity: Picard 10 to 1e-7 + Newton 10), or None
-    without a card (the tests that use it skip first)."""
+    """The reference's coarse base flows, computed by the port in float64 on
+    the CPU with the reference's recipes (cylinder: Picard 3 + Newton 10;
+    cavity: Picard 10 to 1e-7 + Newton 10; lid cavity at Re=1000 and pinball
+    at Re=30: Picard 5 + Newton 15, tests/integration/test_lidcavity.py and
+    test_pinball.py), or None without a card (the tests that use it skip
+    first)."""
     if not torch.cuda.is_available():
         return None
     out = {}
-    for name, cls, u, picard in (
-        ("cylinder", CylinderFlowSolver, [0.0, 0.0], dict(max_iter=3)),
-        ("cavity", CavityFlowSolver, [0.0], dict(max_iter=10, tol=1e-7)),
+    for name, picard, newton in (
+        ("cylinder", dict(max_iter=3), 10),
+        ("cavity", dict(max_iter=10, tol=1e-7), 10),
+        ("lidcavity", dict(max_iter=5), 15),
+        ("pinball", dict(max_iter=5), 15),
     ):
-        mesh = MESHES[name]()
-        fs = cls.make_default(Re=100 if name == "cylinder" else 7500, mesh=mesh, device="cpu",
-                              precision="f64", solver_backend="host_lu",
-                              path_out=tmp_path_factory.mktemp(name))
+        cls, re, kw = FLOWS[name]
+        mesh = {**MESHES, **NEW_MESHES}[name]()
+        fs = cls.make_default(Re=re, mesh=mesh, device="cpu", precision="f64",
+                              solver_backend="host_lu", path_out=tmp_path_factory.mktemp(name),
+                              **kw)
+        u = [0.0] * fs.params_control.actuator_number
         fs.compute_steady_state(u_ctrl=u, method="picard", **picard)
         fs.compute_steady_state(u_ctrl=u, method="newton", initial_guess=fs.fields.UP0,
-                                max_iter=10)
+                                max_iter=newton)
         out[name] = (mesh, fs.fields.U0.copy(), fs.fields.P0.copy())
     return out
 
 
+# each flow's f32 pin case: steps and control (the reference's production
+# cases for the cylinder and the cavity; the lid moved, the front cylinder
+# turning)
+PIN_CASES = {"cylinder": (4, [0.3, -0.2]), "cavity": (3, [0.0]), "lidcavity": (3, [0.05]),
+             "pinball": (4, [0.3, -0.2, 0.1])}
+
+
 def _pin_run(name, base, tmp_path, **kw):
     """The reference's production case: cylinder Re=100, 4 steps with u =
-    [0.3, -0.2]; cavity Re=7500, 3 steps with u = [0]. Returns (y of every
-    step, final mixed state, the solver)."""
+    [0.3, -0.2]; cavity Re=7500, 3 steps with u = [0]; and the lid cavity's
+    (Re=1000, 3 steps, u = [0.05]) and the pinball's (Re=30, 4 steps, u =
+    [0.3, -0.2, 0.1]). Returns (y of every step, final mixed state, the
+    solver)."""
     mesh, u0, p0 = base
-    cyl = name == "cylinder"
-    cls = CylinderFlowSolver if cyl else CavityFlowSolver
-    steps, u = (4, np.array([0.3, -0.2])) if cyl else (3, np.zeros(1))
-    fs = cls.make_default(Re=100 if cyl else 7500, mesh=mesh, num_steps=steps,
-                          path_out=tmp_path, **kw)
+    cls, re, flow_kw = FLOWS[name]
+    steps, u = PIN_CASES[name]
+    u = np.asarray(u)
+    fs = cls.make_default(Re=re, mesh=mesh, num_steps=steps, path_out=tmp_path, **flow_kw,
+                          **kw)
     fs._assign_steady_state(u0, p0)
     fs.initialize_time_stepping()
     ys = np.asarray([fs.step(u) for _ in range(steps)])
@@ -268,6 +307,30 @@ def test_torch_cuda_f32_pin(cuda, pin_base_flows, name, path, tmp_path, monkeypa
         assert np.allclose(y_32, y_ref, rtol=5e-4, atol=1e-6), np.abs(y_32 - y_ref).max()
     else:
         assert np.allclose(y_32[-1], y_ref[-1], rtol=5e-4, atol=1e-6), (y_32[-1], y_ref[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lidcavity", "pinball"])
+def test_torch_cuda_f32_pin_new_flows(cuda, pin_base_flows, name, tmp_path):
+    """The reference's f32 pin on the lid cavity (with its pressure pin) and
+    the pinball, through the multifrontal path (F): field error below 1e-4
+    relative and every y within rtol 5e-4, atol 1e-6 of the port's float64
+    host-LU run."""
+    y_ref, x_ref, _ = _pin_run(name, pin_base_flows[name], tmp_path / "f64", device="cpu",
+                               precision="f64", solver_backend="host_lu")
+    y_32, x_32, fs = _pin_run(name, pin_base_flows[name], tmp_path / "f32", device="cuda",
+                              stepper_options=PATHS["multifrontal"])
+    st = fs.stepper
+    assert st.dtype == torch.float32 and isinstance(st._solvers[-1], MultifrontalLU)
+    assert st._solvers[-1].takes_fused(1)
+    if name == "lidcavity":
+        assert 2 * fs.space.n_vnodes in st.bcs.dofs  # the pressure pin
+    rel = np.linalg.norm(x_32 - x_ref) / np.linalg.norm(x_ref)
+    print(f"f32 pin {name} multifrontal (refinement sweeps {st._refine}): field {rel:.3e}; y "
+          f"max|f32 - f64| {np.abs(y_32 - y_ref).max():.3e}")
+    assert fs._step_compiled == st._graphed_step
+    assert rel < 1e-4
+    assert np.allclose(y_32, y_ref, rtol=5e-4, atol=1e-6), np.abs(y_32 - y_ref).max()
 
 
 @pytest.mark.cuda
@@ -716,10 +779,16 @@ def test_torch_cuda_s_one_kernel_no_copy(cuda, s_matrices):
     for call in (lambda: csr_matmul(m, x), lambda: csr_residual(a, b, x)):
         call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        # after CUDA graphs ran in the process the profiler now and then
+        # hands back a window with no device record at all: up to three
+        # windows, as chip_smoke.py's device_ms takes
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+            if kernels:
+                break
         names = [e.name for e in kernels]
         assert len(kernels) == 1 and "csr_spmm_tiled_kernel" in names[0], names
         assert not any("copy" in n.lower() or "memcpy" in n.lower() for n in names), names
@@ -771,7 +840,8 @@ def test_torch_cuda_s_plan_on_first_product(cuda, s_matrices, pin_base_flows, tm
 GRAPH_CASES = [("cylinder", "dense", 1), ("cylinder", "multifrontal", 1),
                ("cylinder", "multifrontal", 256), ("cylinder", "block", 1),
                ("cylinder", "block", 256), ("cavity", "multifrontal", 1),
-               ("cavity", "multifrontal", 64)]
+               ("cavity", "multifrontal", 64), ("lidcavity", "multifrontal", 1),
+               ("pinball", "multifrontal", 1)]
 GRAPH_STEPS = 6
 CARRY_FIELDS = ("u_n", "u_nn", "mu_n", "mu_nn", "n_prev", "u_ctrl_prev")
 
@@ -791,10 +861,9 @@ def _graph_case(pin_base_flows, name, path, batch, tmp_path, monkeypatch):
     if path == "block":
         monkeypatch.setattr(Stepper, "LAPACK_LU_MAX_N", 4096)
     mesh, u0, p0 = pin_base_flows[name]
-    cyl = name == "cylinder"
-    cls = CylinderFlowSolver if cyl else CavityFlowSolver
-    fs = cls.make_default(Re=100 if cyl else 7500, mesh=mesh, path_out=tmp_path, device="cuda",
-                          stepper_options=PATHS[path])
+    cls, re, flow_kw = FLOWS[name]
+    fs = cls.make_default(Re=re, mesh=mesh, path_out=tmp_path, device="cuda",
+                          stepper_options=PATHS[path], **flow_kw)
     fs._assign_steady_state(u0, p0)
     fs.initialize_time_stepping()
     st = fs.stepper
@@ -964,3 +1033,49 @@ def test_torch_cuda_graph_capture_failure_raises(cuda):
     with pytest.raises(RuntimeError):
         prog.run()
     assert prog.graph is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 64])
+def test_torch_cuda_graph_lqg_closed_loop_matches_eager(cuda, pin_base_flows, batch, tmp_path,
+                                                        monkeypatch):
+    """The pinball's MIMO closed loop as a graph: the committed 22-state
+    3 x 3 LQG (u = +K(y), feedback_sign=+1), its output scaled by a gain per
+    member, 6 steps of make_rollout_closed_loop (the compensator, designed
+    for the stock mesh, drives u up ~4.5x a step on this one) against the
+    eager loop of Stepper.step and the controller's products: y, dE, u and
+    the final carry bitwise. B = 2 goes through F, B = 64 through K2 and
+    P1."""
+    from flowcontrol_tpu_torch.core.controller import Controller
+
+    st, up, _ = _graph_case(pin_base_flows, "pinball", "multifrontal", batch, tmp_path,
+                            monkeypatch)
+    k = Controller.from_file(PINBALL_LQG_RE100)
+    gains = torch.linspace(0.5, 1.5, batch, dtype=st.dtype, device=cuda)
+    ad, bd, cd, dd = (torch.as_tensor(m, dtype=st.dtype, device=cuda)
+                      for m in k.discrete(0.005, dtype=np.float32))
+    mats = (ad.expand(batch, -1, -1), bd.expand(batch, -1, -1),
+            gains[:, None, None] * cd, gains[:, None, None] * dd)
+    y0 = torch.as_tensor(up, dtype=st.dtype, device=cuda) @ st._dev["c"].T
+    c, y, xk = st.init_carry(up), y0, torch.zeros((batch, k.nstates), dtype=st.dtype,
+                                                  device=cuda)
+    ys, des, uu = [], [], []
+
+    def mv(a, v):
+        return torch.einsum("...ij,...j->...i", a, v)
+
+    for _ in range(6):
+        u = mv(mats[2], xk) + mv(mats[3], y)
+        xk = mv(mats[0], xk) + mv(mats[1], y)
+        c, out = st.step(c, u)
+        y = out.y
+        ys.append(y)
+        des.append(out.dE)
+        uu.append(u)
+    carry, (ys_g, des_g, us_g, _) = st.make_rollout_closed_loop(6, feedback_sign=1.0)(
+        st.init_carry(up), mats, y0)
+    for got, want in [(ys_g, torch.stack(ys)), (des_g, torch.stack(des)),
+                      (us_g, torch.stack(uu))] + [(getattr(carry, f), getattr(c, f))
+                                                  for f in CARRY_FIELDS]:
+        assert torch.equal(got, want)
+    assert carry.it == c.it == 6 and float((us_g[:, 0] - us_g[:, -1]).abs().max()) > 0

@@ -188,8 +188,31 @@ fails or no CUDA device is present:
 32. the dense rule at 67,920 dofs: the pinball's default ('auto') Stepper
     after the multifrontal one left the card: what it took, the peak
     device memory of its f64 factorization, 60 steps of phase 27's loop
-    and its steps/s beside the multifrontal path's;
-33. the new graph phases in sum.
+    and its steps/s beside the multifrontal path's; then, with that
+    solver dropped and its blocks left in PyTorch's cache, the rule still
+    allows 67,920 dofs (it counts the cached blocks as free), and with
+    20 GB held it allows fewer (it counts what the card has free);
+33. the new graph phases in sum;
+34. the analysis path at the default cylinder's 56,383 dofs, on phase 3's
+    host base flow and a card that holds nothing else: ``OperatorGetter``'s
+    ``get_all(autodiff=False)`` on the host, then ``get_A(autodiff=True)``
+    with the element Jacobians on the card in f64: max |A_ad - A_man| /
+    max |A_man| <= 1e-10; nnz of A and E, ||A||_F, the shapes of B and C and
+    the seconds of each call (and of a second, warm call of the element
+    Jacobians alone);
+35. eigenvalues: the host ``get_mat_vp_shift_invert(A, E, n=8,
+    sigma=0.1+0.8j)``, its leading eigenvalue within 1e-6 of the JAX
+    package's on this mesh (``EIG_REF``), then ``eig_arnoldi_dense_device``
+    on the card (complex64, n_krylov = 60, A - σE formed densely from its
+    triplets): its leading eigenvalue within 1e-2 of the host's; the LU's
+    and the Arnoldi loop's seconds and the peak device memory;
+36. the frequency response at ww = [0.1, 0.77, 2.15, 10.0]:
+    ``get_frequency_response_device`` on the card (complex64, one
+    refinement sweep with a complex128 residual) against the host
+    ``get_frequency_response``: max |H_dev - H_host| / max |H_host| <= 2e-4
+    (the unrefined error printed beside it); the seconds per ω on both sides
+    and the peak device memory, at most two dense n x n complex64 arrays
+    and ANALYSIS_SLACK.
 
 ``fs.step`` runs ``Stepper.compiled_step``: from the second step of a run
 a CUDA graph of the step, so phases 3, 6, 10 and 17 time and count the
@@ -1598,6 +1621,7 @@ PIN_NDOFS = 67_920
 LIFT_TOL = 5e-2  # top and bottom lift antisymmetric (tests/integration/test_pinball.py)
 DENSE_STEPS = 60  # the pinball's dense path: steps/s over the last DENSE_STEPS - CTRL_STEPS
 DENSE_HELD_MAX = 1e9  # bytes the card may hold from earlier phases when phase 32 starts
+DENSE_HOLD = 20e9  # bytes held while phase 32 reads the dense rule a third time
 # the LQG's closed loop on the generated mesh: the compensator's own
 # spectral radius is 4.50 a step, and the full-order plant does not hold it
 # (u grows ~4.5x a step: |u| 2.2 at step 6, 372 at step 10, and the state
@@ -1939,6 +1963,25 @@ def new_flows(counters, card: str) -> tuple[list, list]:
     expect_launches("phase 32", dense["launches"], [DENSE_STEPS + 1, 0, 0, 0, 0, 0, 0],
                     "the dense LU: K1 only")
     del fd, std, dense
+    gc.collect()  # the factorization's blocks stay in PyTorch's cache
+    free_c = torch.cuda.mem_get_info(dev)[0]
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    limit_cached = dense_lu_max_dofs_device(dev)
+    log(f"phase 32: the dense solver dropped, its blocks cached ({free_c / 1e9:.2f} GB free, "
+        f"{cached / 1e9:.2f} GB cached unused): the dense rule allows {limit_cached} dofs")
+    if not limit_cached >= PIN_NDOFS:
+        raise AssertionError(f"phase 32: with the dropped factorization cached the dense rule "
+                             f"allows {limit_cached} < {PIN_NDOFS} dofs")
+    free_card()
+    hold = torch.empty(int(DENSE_HOLD), dtype=torch.uint8, device=dev)
+    limit_held = dense_lu_max_dofs_device(dev)
+    log(f"phase 32: with {DENSE_HOLD / 1e9:.0f} GB held ({torch.cuda.mem_get_info(dev)[0] / 1e9:.2f} "
+        f"GB free) the dense rule allows {limit_held} dofs (clean card: {limit}): 'auto' at "
+        f"{PIN_NDOFS} dofs takes the multifrontal solve")
+    if not limit_held < PIN_NDOFS:
+        raise AssertionError(f"phase 32: with {DENSE_HOLD / 1e9:.0f} GB held the dense rule "
+                             f"still allows {limit_held} >= {PIN_NDOFS} dofs")
+    del hold
     free_card()
 
     # ── phase 33: the new graph phases in sum ────────────────────────────────
@@ -1964,6 +2007,121 @@ def new_flows(counters, card: str) -> tuple[list, list]:
         kernel_row(f"F multifrontal_solve_fused pinball n={n_pin}", src + "mf_fused.cu", f_tpu,
                    pinr["launches"][4], f_pin, None, sweep_ms=f_pin["sweep_ms"]),
     ]
+
+
+# ── The analysis path (phases 34-36) ──────────────────────────────────────────
+
+SIGMA = 0.1 + 0.8j  # the shift of examples/compute_eigenvalues.py
+# the JAX package's leading eigenvalue on this mesh: host f64 Picard(3) +
+# Newton base flow, get_A(autodiff=False), get_mat_vp_shift_invert(n=8,
+# sigma=SIGMA) on the CPU
+EIG_REF = 0.13292280716306798 + 0.7700283037629039j
+EIG_REF_TOL = 1e-6
+EIG_DEV_TOL = 1e-2  # tests/test_linalg.py:98
+FREQ_WW = (0.1, 0.77, 2.15, 10.0)  # in the example's logspace(-1, 1, 50) range, one at the mode
+FREQ_TOL = 2e-4  # tests/test_linalg.py:59
+ANALYSIS_SLACK = 1e9  # bytes beyond the matrix and its LU (CSR copies, vectors, workspace)
+
+
+def analysis(u0: np.ndarray, p0: np.ndarray, card: str) -> None:
+    """Phases 34-36: operators, eigenvalues and the frequency response of
+    the default cylinder around phase 3's base flow."""
+    from flowcontrol_tpu_torch.core.operatorgetter import OperatorGetter
+    from flowcontrol_tpu_torch.fem.assembly import steady_jacobian_elements_autodiff
+    from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
+    from flowcontrol_tpu_torch.utils.linalg import (
+        eig_arnoldi_dense_device,
+        get_frequency_response,
+        get_frequency_response_device,
+        get_mat_vp_shift_invert,
+    )
+
+    dev = torch.device("cuda", 0)
+    t_phases = time.perf_counter()
+    held = torch.cuda.memory_allocated(dev)
+    if held > DENSE_HELD_MAX:
+        raise AssertionError(f"phase 34: {held / 1e9:.2f} GB already on the card")
+
+    # ── phase 34: A, E, B, C; the autodiff A on the card ─────────────────────
+    fa = CylinderFlowSolver.make_default(Re=RE, num_steps=1, device="cuda")
+    fa._assign_steady_state(u0, p0)
+    og = OperatorGetter(fa)
+    t0 = time.perf_counter()
+    a, e, b, c = og.get_all(autodiff=False)
+    t_all = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    a_ad = og.get_A(autodiff=True)
+    t_ad = time.perf_counter() - t0
+    ad_err = abs(a_ad - a).max() / abs(a).max()
+    n = a.shape[0]
+    up0 = torch.as_tensor(fa.fields.UP0, device=fa.device)
+    t0 = time.perf_counter()
+    steady_jacobian_elements_autodiff(fa.geom, fa.space, up0, 1.0 / RE).cpu()
+    t_jac = time.perf_counter() - t0
+    log(f"phase 34: operators at n = {n} ({held / 1e9:.3f} GB on the card before): A nnz "
+        f"{a.nnz}, E nnz {e.nnz}, ||A||_F = {np.sqrt((a.data ** 2).sum()):.10e}, B {b.shape}, "
+        f"C {c.shape}; get_all(autodiff=False) {t_all:.2f} s on the host, get_A(autodiff=True) "
+        f"{t_ad:.2f} s (element Jacobians by torch.func.jacfwd on the card in f64, first call; "
+        f"a second call of the Jacobians alone {t_jac:.3f} s; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB); max|A_ad - A_man| / max|A_man| "
+        f"= {ad_err:.3e} (tol 1e-10) ({card})")
+    if not ad_err <= 1e-10:
+        raise AssertionError(f"phase 34: autodiff A differs from manual A by {ad_err:.3e}")
+    del a_ad
+
+    # ── phase 35: shift-invert eigenvalues, host and card ────────────────────
+    t0 = time.perf_counter()
+    vals_h = get_mat_vp_shift_invert(a, e, n=8, sigma=SIGMA, return_vectors=False)
+    t_host = time.perf_counter() - t0
+    ref_err = abs(vals_h[0] - EIG_REF)
+    log(f"phase 35: host ARPACK shift-invert (splu) at sigma = {SIGMA}: {t_host:.2f} s; leading "
+        f"{vals_h[0]:.12f}, |lambda - JAX's {EIG_REF:.12f}| = {ref_err:.3e} (tol {EIG_REF_TOL}); "
+        f"all {np.round(vals_h, 6).tolist()}")
+    if not ref_err <= EIG_REF_TOL:
+        raise AssertionError(f"phase 35: host eigenvalue {vals_h[0]} is {ref_err:.3e} from JAX's")
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = {}
+    t0 = time.perf_counter()
+    vals_d, _ = eig_arnoldi_dense_device(a, e, n=8, sigma=SIGMA, n_krylov=60, device=dev,
+                                         stats=stats)
+    t_dev = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    dev_err = abs(vals_d[0] - vals_h[0])
+    log(f"phase 35: eig_arnoldi_dense_device (complex64, n_krylov 60) {t_dev:.2f} s: dense "
+        f"A - sigma E and its LU {stats['lu_seconds']:.2f} s, Arnoldi loop "
+        f"{stats['arnoldi_seconds']:.2f} s; peak device memory {peak / 1e9:.2f} GB (one n x n "
+        f"complex64 {8 * n * n / 1e9:.2f} GB); leading {vals_d[0]:.8f}, |lambda_dev - "
+        f"lambda_host| = {dev_err:.3e} (tol {EIG_DEV_TOL}); all {np.round(vals_d, 6).tolist()} "
+        f"({card})")
+    if not dev_err <= EIG_DEV_TOL:
+        raise AssertionError(f"phase 35: device eigenvalue {vals_d[0]} is {dev_err:.3e} from "
+                             f"the host's {vals_h[0]}")
+    if peak > 2 * 8 * n * n + ANALYSIS_SLACK:
+        raise AssertionError(f"phase 35: peak device memory {peak / 1e9:.2f} GB")
+
+    # ── phase 36: the frequency response, host and card ──────────────────────
+    ww = np.asarray(FREQ_WW)
+    t0 = time.perf_counter()
+    h_host = get_frequency_response(a, b, c, e, ww)
+    t_host = (time.perf_counter() - t0) / len(ww)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = {}
+    h_dev = get_frequency_response_device(a, b, c, e, ww, device=dev, stats=stats)
+    peak = torch.cuda.max_memory_allocated(dev)
+    scale = np.abs(h_host).max()
+    err = np.abs(h_dev - h_host).max() / scale
+    err0 = np.abs(stats["h_unrefined"] - h_host).max() / scale
+    log(f"phase 36: H(jw) at w = {list(FREQ_WW)}, {h_host.shape[1]} x {h_host.shape[2]}: host "
+        f"splu {t_host:.2f} s per w; card (complex64, one refinement sweep) "
+        f"{[round(t, 2) for t in stats['seconds']]} s per w; peak device memory "
+        f"{peak / 1e9:.2f} GB; max|H_dev - H_host| / max|H_host| = {err:.3e} (tol {FREQ_TOL}), "
+        f"unrefined {err0:.3e}; max|H_host| = {scale:.6e} ({card})")
+    if not err <= FREQ_TOL:
+        raise AssertionError(f"phase 36: H differs from the host's by {err:.3e}")
+    if peak > 2 * 8 * n * n + ANALYSIS_SLACK:
+        raise AssertionError(f"phase 36: peak device memory {peak / 1e9:.2f} GB")
+    log(f"phases 34-36: {time.perf_counter() - t_phases:.1f} s wall ({card})")
 
 
 def main() -> int:
@@ -2350,6 +2508,7 @@ def main() -> int:
     # ── phases 23-33: the lid cavity and the pinball, on a card holding
     # nothing else (phase 32 measures what the dense factorization takes)
     n_cyl, n_cav = mf.n, mfc.n
+    u0_cyl, p0_cyl = fs.fields.U0, fs.fields.P0  # phase 3's host base flow, for phase 34
     del fs, fs2, st2, mf, fc, stc, mfc, mfp["st"], cav["st"], stp, f
     for r in (open_mf, open_c):
         del r["carry"], r["y_last"]
@@ -2357,6 +2516,9 @@ def main() -> int:
     free_card()
     s_new, new_rows = new_flows(counters, card)
     s_launches = [s_launches[0] + s_new[0], s_launches[1] + s_new[1]]
+
+    # ── phases 34-36: the analysis path on a card holding nothing else ──────
+    analysis(u0_cyl, p0_cyl, card)
 
     src = "flowcontrol_tpu_torch/csrc/"
     f_launches = mfp["launches"][4] + cav["launches"][4]

@@ -62,13 +62,19 @@ def require_device(device: torch.device | str) -> torch.device:
 
 
 def device_memory_budget_bytes(device: torch.device | str) -> int:
-    """Usable memory for resident solver state on ``device``: 0.9 x its
-    total (the counterpart of ``device_hbm_budget_bytes``). For a CUDA
-    device that is the card's memory; for the CPU the host's RAM."""
+    """Usable memory for new solver state on ``device``. For a CUDA device
+    0.9 x what the card has free now (``torch.cuda.mem_get_info``) plus the
+    blocks PyTorch's caching allocator holds unused (reserved less
+    allocated: the allocator hands them back before it fails an
+    allocation), so that what other solvers hold counts against it and what
+    dropped ones left in the cache does not; for the CPU 0.9 x the host's
+    RAM (the counterpart of ``device_hbm_budget_bytes``, which counts the
+    device's total)."""
     device = torch.device(device)
     if device.type == "cuda":
-        _, total = torch.cuda.mem_get_info(device)
-        return int(total * 0.9)
+        free, _ = torch.cuda.mem_get_info(device)
+        cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+        return int((free + cached) * 0.9)
     if device.type == "cpu":
         return int(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") * 0.9)
     raise ValueError(f"no memory budget rule for device type {device.type!r}")

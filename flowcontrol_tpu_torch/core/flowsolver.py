@@ -287,6 +287,12 @@ class FlowSolver(ABC):
         for actuator, val in zip(self.params_control.actuator_list, u_ctrl):
             actuator.u_ctrl = float(val)
 
+    def flush_actuators_u_ctrl(self) -> None:
+        self.set_actuators_u_ctrl([0] * self.params_control.actuator_number)
+
+    def get_actuators_u_ctrl(self) -> list:
+        return [a.u_ctrl for a in self.params_control.actuator_list]
+
     def make_measurement(self, up: np.ndarray) -> np.ndarray:
         """Evaluate all sensors on a mixed field (ref: flowsolver.py:311-325)."""
         return np.array(
@@ -566,11 +572,19 @@ class FlowSolver(ABC):
         """½‖u'‖²_L2 of the current perturbation field."""
         return 0.5 * l2_norm_velocity(self.geom, self.space, self.fields.u_) ** 2
 
+    def compute_energy_field(self) -> np.ndarray:
+        """Pointwise kinetic-energy density u'·u' at velocity nodes."""
+        return (self.fields.u_ ** 2).sum(axis=1)
+
     # ── Utilities ────────────────────────────────────────────────────────────
 
     def merge(self, u: np.ndarray, p: np.ndarray) -> np.ndarray:
         """(ref: flowsolver.py:845-862)"""
         return np.concatenate([np.asarray(u).reshape(-1), np.asarray(p)])
+
+    def get_subdomain(self, name: str):
+        """Return the boundary predicate for a named region."""
+        return self.boundaries[name]
 
     # ── Abstract methods (ref: flowsolver.py:916-940) ───────────────────────
 

@@ -157,7 +157,8 @@ def sparse_residual(a64: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torc
 def dense_lu_max_dofs_device(device) -> int:
     """Largest dof count the dense LU takes on ``device``: the factor is
     computed in f64, so A and LU together (16 n^2 bytes) must fit the
-    memory budget. On an 80 GB card that is about 69k dofs, above the
+    memory budget, which on a card counts what it has free. On an 80 GB
+    card holding nothing else that is about 68.8k dofs, above the
     56,383-dof default cylinder mesh; past it the Stepper takes the
     multifrontal solve."""
     return int((device_memory_budget_bytes(device) / 16) ** 0.5)

@@ -11,6 +11,9 @@ Transcribed from ``flowcontrol_tpu/fem/assembly.py``:
   contributions through a padded gather table (deterministic, no atomics),
   and ``apply_element_tensors_gather`` is the matrix-free element apply built
   on it. The nonlinear term N(u) and its CUDA kernel live in ``ops/nl.py``.
+- The steady residual and its element Jacobians through ``torch.func``
+  (``jacfwd`` inside ``vmap`` over cells), on the base flow's device: the
+  autodiff operator A of ``core/operatorgetter.py``.
 """
 
 from __future__ import annotations
@@ -249,6 +252,91 @@ def apply_element_tensors_gather(a_e, cell_dofs, table, x):
     xe = x[..., cell_dofs]  # (..., nc, 15)
     ye = torch.einsum("cij,...cj->...ci", a_e, xe)
     return gather_assemble(ye.reshape(x.shape[:-1] + (-1,)), table)
+
+
+# ── Steady residual (for the autodiff Jacobian) ─────────────────────────────
+
+
+def steady_residual_element(geom_cell: dict, up_cell, inv_re: float, f_cell=None):
+    """Per-cell steady NS residual over the local dofs (15,), on tensors.
+
+    ``geom_cell``: dict with wq (7,), phi2 (7,6), dphi2 (7,6,2), phi1 (7,3)
+    for ONE cell. ``torch.func.jacfwd`` of this function gives the element
+    Jacobian, held against the hand-linearized element matrices to 1e-10
+    (ref: tests/integration/test_operatorgetter.py:89-103).
+    """
+    wq, phi2, dphi2, phi1 = (
+        geom_cell["wq"],
+        geom_cell["phi2"],
+        geom_cell["dphi2"],
+        geom_cell["phi1"],
+    )
+    u_loc = up_cell[:12].reshape(6, 2)
+    p_loc = up_cell[12:]
+    u_q = phi2 @ u_loc  # (7, 2)
+    g_q = torch.einsum("qni,nd->qid", dphi2, u_loc)  # ∂u_d/∂x_i
+    p_q = phi1 @ p_loc  # (7,)
+    div_q = g_q[:, 0, 0] + g_q[:, 1, 1]
+    conv_q = torch.einsum("qi,qid->qd", u_q, g_q)  # (u·∇)u
+    # momentum rows (a, d): conv + (1/Re) ∇u:∇v - p div(v) - f·v
+    r_mom = torch.einsum("q,qa,qd->ad", wq, phi2, conv_q)
+    r_mom = r_mom + inv_re * torch.einsum("q,qai,qid->ad", wq, dphi2, g_q)
+    r_mom = r_mom - torch.einsum("q,qad,q->ad", wq, dphi2, p_q)
+    if f_cell is not None:
+        f_q = phi2 @ f_cell  # f interpolated on P2 nodes
+        r_mom = r_mom - torch.einsum("q,qa,qd->ad", wq, phi2, f_q)
+    # continuity rows: -q div(u)
+    r_cont = -torch.einsum("q,qb,q->b", wq, phi1, div_q)
+    return torch.cat([r_mom.reshape(-1), r_cont])
+
+
+def _cell_tables(geom: CellGeometry, device, dtype) -> tuple:
+    """(wq, phi2, dphi2, phi1) as tensors on ``device``."""
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return t(geom.wq), t(geom.phi2), t(geom.dphi2), t(geom.phi1)
+
+
+def steady_residual(geom: CellGeometry, space: TaylorHoodSpace, up, inv_re: float,
+                    f_nodes=None) -> torch.Tensor:
+    """Global steady residual vector (n_dofs,) on ``up``'s device and in its
+    float dtype (numpy input: the CPU)."""
+    up = torch.as_tensor(up)
+    wq, phi2, dphi2, phi1 = _cell_tables(geom, up.device, up.dtype)
+    cd = torch.as_tensor(space.cell_dofs, dtype=torch.int64, device=up.device)
+    up_cells = up[cd]  # (nc, 15)
+
+    def per_cell(wq_c, dphi2_c, up_c, f_c=None):
+        g = {"wq": wq_c, "phi2": phi2, "dphi2": dphi2_c, "phi1": phi1}
+        return steady_residual_element(g, up_c, inv_re, f_c)
+
+    if f_nodes is not None:
+        f_nodes = torch.as_tensor(f_nodes, dtype=up.dtype, device=up.device)
+        f_cells = f_nodes[torch.as_tensor(space.cell_vel_nodes, device=up.device).long()]
+        r_e = torch.func.vmap(per_cell)(wq, dphi2, up_cells, f_cells)
+    else:
+        r_e = torch.func.vmap(per_cell)(wq, dphi2, up_cells)
+    y = torch.zeros(space.n_dofs, dtype=r_e.dtype, device=up.device)
+    return y.index_add_(0, cd.reshape(-1), r_e.reshape(-1))
+
+
+def steady_jacobian_elements_autodiff(geom: CellGeometry, space: TaylorHoodSpace, up,
+                                      inv_re: float) -> torch.Tensor:
+    """Element Jacobians of the steady residual (nc, 15, 15) through
+    ``torch.func.jacfwd`` inside ``torch.func.vmap`` over the cells, on
+    ``up``'s device. Functionally identical to dolfin.derivative + assemble
+    (ref: src/flowcontrol/operatorgetter.py:61-64).
+    """
+    up = torch.as_tensor(up)
+    wq, phi2, dphi2, phi1 = _cell_tables(geom, up.device, up.dtype)
+    up_cells = up[torch.as_tensor(space.cell_dofs, dtype=torch.int64, device=up.device)]
+
+    def per_cell(wq_c, dphi2_c, up_c):
+        g = {"wq": wq_c, "phi2": phi2, "dphi2": dphi2_c, "phi1": phi1}
+        return torch.func.jacfwd(lambda z: steady_residual_element(g, z, inv_re))(up_c)
+
+    return torch.func.vmap(per_cell)(wq, dphi2, up_cells)
 
 
 # ── Global sparse matrix (host-side) ─────────────────────────────────────────

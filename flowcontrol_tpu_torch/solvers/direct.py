@@ -82,10 +82,15 @@ class DeviceDenseLU:
     gives bitwise the same x but measured 13.4 ms against 8.2 ms at 56,383
     dofs in f32 (NVIDIA H100 80GB HBM3, 700 W): 5.3 ms of it is one extra
     elementwise pass over the factor's size.
+
+    ``factor_dtype`` = ``store_dtype`` = ``torch.complex64`` factors a
+    complex matrix where it stands, A and LU together 16 n^2 bytes (the
+    dense complex solves of ``utils/linalg.py``).
     """
 
-    def __init__(self, a_csr, device, store_dtype: torch.dtype):
-        a = dense_from_csr_on_device(a_csr, device, torch.float64)
+    def __init__(self, a_csr, device, store_dtype: torch.dtype,
+                 factor_dtype: torch.dtype = torch.float64):
+        a = dense_from_csr_on_device(a_csr, device, factor_dtype)
         lu, piv, info = torch.linalg.lu_factor_ex(a)
         del a
         if int(info) != 0:

@@ -13,6 +13,10 @@ package, so it also runs on a GPU machine without them:
 - The cylinder slice on the card (f32, dense LU, K1) against the port's own
   float64 CPU run from the same base flow: y within 5e-4 relative of the
   f64 run's peak and the 10-step field within 5e-4.
+- The dense rule on the default cylinder (56,383 dofs): an 'auto' Stepper
+  takes the dense LU, is dropped with its factorization left in PyTorch's
+  cache (so that what ``mem_get_info`` reports free would not hold a second
+  one), and a second 'auto' Stepper in the same process still takes it.
 - The reference's f32 pin (``tests/integration/test_cylinder.py``
   ``test_cylinder_dense_f32_production_path_fast`` and
   ``tests/integration/test_cavity.py``
@@ -89,6 +93,13 @@ package, so it also runs on a GPU machine without them:
   runs through ``compiled_step``'s graph. The pinball's MIMO closed loop
   with the committed 22-state 3 x 3 LQG (u = +K(y)), 6 graphed steps at
   B = 2 (F) and B = 64 (K2, P1), bitwise equal to the eager loop.
+- The analysis path's device functions (``utils/linalg.py``) on a sparse
+  400-dof descriptor system with a singular E: ``eig_arnoldi_dense_device``
+  on the card in complex64 against the same function on the CPU in
+  complex128 (leading eigenvalue within 1e-2, ``tests/test_linalg.py``'s
+  tolerance) and ``get_frequency_response_device`` the same way (2e-4
+  relative), the refined answer and the unrefined one (``stats``). Without
+  a card both raise rather than run on the CPU (a CPU test, unmarked).
 """
 
 import numpy as np
@@ -206,6 +217,34 @@ def test_torch_cuda_cylinder_f32_against_cpu_f64(cuda, tmp_path):
     assert np.abs(y32 - y64).max() <= 5e-4 * np.abs(y64).max()
     err = np.linalg.norm(gpu.fields.up_ - ref.fields.up_) / np.linalg.norm(ref.fields.up_)
     assert err <= 5e-4
+
+
+@pytest.mark.cuda
+def test_torch_cuda_dense_rule_counts_cached_blocks(cuda, tmp_path):
+    """A dropped dense Stepper leaves its f64 factorization's blocks in
+    PyTorch's cache; the dense rule counts them, so a second 'auto' Stepper
+    of the default cylinder in the same process still takes the dense LU."""
+    import gc
+
+    from flowcontrol_tpu_torch.core.stepper import dense_lu_max_dofs_device
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kinds = []
+    for _ in range(2):
+        fs = CylinderFlowSolver.make_default(Re=100, path_out=tmp_path, device="cuda")
+        n = fs.space.n_dofs
+        fs._assign_steady_state(np.zeros((fs.space.n_vnodes, 2)),
+                                np.zeros(fs.space.n_pressure_dofs))
+        fs.initialize_time_stepping()
+        kinds.append(list(fs.stepper._solver_kinds))
+        del fs
+        gc.collect()
+        if len(kinds) == 1:  # the cache alone must decide
+            free, _ = torch.cuda.mem_get_info(cuda)
+            assert int((0.9 * free / 16) ** 0.5) < n <= dense_lu_max_dofs_device(cuda)
+    assert n == 56_383
+    assert all("multifrontal" not in k for k in kinds), kinds
 
 
 # the card's solve paths: the default dense LU, the multifrontal solve and
@@ -1079,3 +1118,66 @@ def test_torch_cuda_graph_lqg_closed_loop_matches_eager(cuda, pin_base_flows, ba
                                                   for f in CARRY_FIELDS]:
         assert torch.equal(got, want)
     assert carry.it == c.it == 6 and float((us_g[:, 0] - us_g[:, -1]).abs().max()) > 0
+
+
+# ── The analysis path's device functions ────────────────────────────────────
+
+
+def _descriptor_system(n: int = 400, seed: int = 5):
+    """A sparse A with a weakly unstable pair near 0.1 + 0.8j among damped
+    modes, a singular E (its last tenth of rows zero, as the flow mass's
+    pressure rows), B (n, 2) and C (3, n)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    a = sp.random(n, n, density=0.02, random_state=seed, format="lil") * 0.05
+    a.setdiag(-np.linspace(0.5, 5.0, n))
+    a[0, 0], a[0, 1], a[1, 0], a[1, 1] = 0.1, 0.8, -0.8, 0.1
+    e = sp.eye(n, format="lil")
+    for i in range(n - n // 10, n):
+        e[i, i] = 0.0
+    return (a.tocsr(), e.tocsr(), rng.standard_normal((n, 2)),
+            rng.standard_normal((3, n)))
+
+
+@pytest.mark.cuda
+def test_torch_cuda_eig_arnoldi_matches_cpu(cuda):
+    from flowcontrol_tpu_torch.utils.linalg import eig_arnoldi_dense_device
+
+    a, e, _, _ = _descriptor_system()
+    kw = dict(n=4, sigma=0.1 + 0.8j, n_krylov=60)
+    got, vecs = eig_arnoldi_dense_device(a, e, dtype=torch.complex64, device=cuda, **kw)
+    ref, _ = eig_arnoldi_dense_device(a, e, dtype=torch.complex128, device="cpu", **kw)
+    assert abs(got[0] - ref[0]) < 1e-2
+    assert abs(ref[0] - (0.1 + 0.8j)) < 0.05 and vecs.shape == (a.shape[0], 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refined", [False, True])
+def test_torch_cuda_frequency_response_matches_cpu(cuda, refined):
+    from flowcontrol_tpu_torch.utils.linalg import get_frequency_response_device
+
+    a, e, b, c = _descriptor_system()
+    ww = np.array([0.1, 0.77, 2.15, 10.0])
+    stats = {}
+    got = get_frequency_response_device(a, b, c, e, ww, dtype=torch.complex64, device=cuda,
+                                        stats=stats)
+    got = got if refined else stats["h_unrefined"]
+    ref = get_frequency_response_device(a, b, c, e, ww, dtype=torch.complex128, device="cpu")
+    assert np.abs(got - ref).max() <= 2e-4 * np.abs(ref).max()
+
+
+def test_torch_analysis_device_functions_raise_without_card(monkeypatch):
+    """Without a card the device functions raise; they do not run on the
+    CPU unless asked to (``device="cpu"``)."""
+    from flowcontrol_tpu_torch.utils.linalg import (
+        eig_arnoldi_dense_device,
+        get_frequency_response_device,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a, e, b, c = _descriptor_system(40)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eig_arnoldi_dense_device(a, e, n=2, sigma=0.1 + 0.8j, n_krylov=10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_frequency_response_device(a, b, c, e, [1.0])

@@ -180,6 +180,35 @@ def test_torch_stepper_dense_lu_size_rule(base_flow, tmp_path, monkeypatch, back
     assert np.isfinite(y).all()
 
 
+@pytest.mark.parametrize("free,reserved,allocated,fits_pinball", [
+    (24.45 * 2**30, 0, 0, False),  # other solvers resident
+    (84e9, 0, 0, True),  # a card holding nothing else
+    (23e9, 61e9, 0.2e9, True),  # a dropped solver's blocks left in the cache
+    (23e9, 61e9, 45e9, False),  # ... still held by a live one
+])
+def test_torch_stepper_dense_rule_counts_free_memory(monkeypatch, free, reserved, allocated,
+                                                     fits_pinball):
+    """On a card the dense rule sizes the f64 factorization against what is
+    free, not the card's total: with 24.45 GiB free of an 80 GB H100's
+    85.02 GB (other solvers resident) the pinball's 67,920 dofs no longer
+    take the dense LU; on a card holding nothing else they still do. Blocks
+    that PyTorch's caching allocator has reserved but does not use count as
+    free (a dropped dense solver leaves its factorization there), blocks it
+    has allocated do not. Counting the total allowed about 69,150 dofs in
+    every case."""
+    import flowcontrol_tpu_torch.core.stepper as stepper_mod
+
+    total = 85.02e9
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (int(free), int(total)))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: int(reserved))
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: int(allocated))
+    limit = stepper_mod.dense_lu_max_dofs_device("cuda")
+    usable = int(free) + int(reserved) - int(allocated)
+    assert limit == int((int(usable * 0.9) / 16) ** 0.5)
+    assert (limit >= 67_920) == fits_pinball
+    assert int((int(total * 0.9) / 16) ** 0.5) >= 67_920
+
+
 @pytest.mark.parametrize("case", ["bdf", "bdf_borrowed"])
 def test_torch_stepper_multifrontal_matches_jax(base_flow, tmp_path, monkeypatch, case):
     monkeypatch.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", "off")

@@ -212,7 +212,34 @@ fails or no CUDA device is present:
     ``get_frequency_response``: max |H_dev - H_host| / max |H_host| <= 2e-4
     (the unrefined error printed beside it); the seconds per ω on both sides
     and the peak device memory, at most two dense n x n complex64 arrays
-    and ANALYSIS_SLACK.
+    and ANALYSIS_SLACK;
+37. controller synthesis on the host from phase 34's A, E, B, C:
+    ``modal_rom(shifts=(0.1+0.8j,), k_per_shift=2)``, its leading kept
+    eigenvalue within 1e-6 of ``EIG_REF``; its order, poles and H(jω) at
+    phase 36's ω beside the host's H (printed, not held);
+    ``lqg_regulator`` over the example's grid qx in {0.1, 1, 10} and
+    ``dlqg_regulator`` at dt = 0.005, the ROM closed loop's spectral
+    abscissa (the sampled loop's spectral radius) under both feedback
+    signs; the sign under which every grid candidate stabilizes the ROM is
+    the one phases 38-39 feed (``examples/synthesize_controller.py`` keeps
+    the JAX example's -1);
+38. the example at full width: a multifrontal Stepper of the cylinder
+    (``force_substructure``, phase 3's base flow, the example's initial
+    condition), the three LQG candidates stacked and stepped as one B = 3
+    ``closed_loop_fn`` rollout of 400 steps through F (exact: F launched,
+    K2 and P1 not); each member's y within 5e-4 of its peak against a
+    single-stream ``fs.step`` + ``Controller.step`` loop from the same
+    state; terminal dE beside the open loop's;
+39. the population search: ``optim_algs.minimize(None, 0, "pop", n_iter 6,
+    popsize 256, sigma0 0.5, seed 0)`` over log10 (qx, ru, qw, rv), each
+    generation scored by ``lqg_population_cost``: 256 compensators
+    synthesized and stacked on the host, one 400-step closed-loop rollout
+    of 256 cylinders through K1, K2, P1 and S. Per generation the host
+    time, the device time (CUDA events around the rollout queued behind a
+    device sleep), the best cost, the +inf count (at most half) and the
+    launches; one graph captured for the whole search; generation 1 re-run
+    bitwise; ``res.x`` as a B = 1 rollout through F within 5e-4 of its
+    batched cost; the costs of theta = 0 and of the open loop.
 
 ``fs.step`` runs ``Stepper.compiled_step``: from the second step of a run
 a CUDA graph of the step, so phases 3, 6, 10 and 17 time and count the
@@ -2023,9 +2050,10 @@ FREQ_TOL = 2e-4  # tests/test_linalg.py:59
 ANALYSIS_SLACK = 1e9  # bytes beyond the matrix and its LU (CSR copies, vectors, workspace)
 
 
-def analysis(u0: np.ndarray, p0: np.ndarray, card: str) -> None:
+def analysis(u0: np.ndarray, p0: np.ndarray, card: str) -> tuple:
     """Phases 34-36: operators, eigenvalues and the frequency response of
-    the default cylinder around phase 3's base flow."""
+    the default cylinder around phase 3's base flow. Returns (A, E, B, C,
+    the host's H at FREQ_WW) for phases 37-39."""
     from flowcontrol_tpu_torch.core.operatorgetter import OperatorGetter
     from flowcontrol_tpu_torch.fem.assembly import steady_jacobian_elements_autodiff
     from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
@@ -2122,6 +2150,232 @@ def analysis(u0: np.ndarray, p0: np.ndarray, card: str) -> None:
     if peak > 2 * 8 * n * n + ANALYSIS_SLACK:
         raise AssertionError(f"phase 36: peak device memory {peak / 1e9:.2f} GB")
     log(f"phases 34-36: {time.perf_counter() - t_phases:.1f} s wall ({card})")
+    return a, e, b, c, h_host
+
+
+# ── Controller synthesis and the population search (phases 37-39) ────────────
+
+ROM_K = 2  # eigenpairs per ARPACK call of modal_rom: the unstable pair and the next
+LQG_GRID = (0.1, 1.0, 10.0)  # examples/synthesize_controller.py's qx
+DLQG_DT = 0.005  # the cylinder's dt
+SYN_STEPS = 400  # 2 time units, a quarter of a shedding period (2 pi / 0.77)
+SYN_TOL = 5e-4  # the reference's f32 pin on y (tests/integration/test_cylinder.py)
+POP_OPTIONS = {"n_iter": 6, "popsize": BATCH, "sigma0": 0.5, "seed": 0}
+LABELS = ("K1", "K2", "P1", "K3", "F", "S", "R")
+
+
+def captured(st) -> int:
+    """The Stepper's programs that hold a captured CUDA graph."""
+    return sum(p.graph is not None for p in st._programs.values())
+
+
+def sampled_radius(rom, k, dt: float, sign: float) -> float:
+    """Spectral radius of the ZOH-sampled ROM with the discrete compensator
+    ``k`` (its matrices the sampled ones) fed sign * y."""
+    from flowcontrol_tpu_torch.utils.statespace import c2d_zoh
+
+    ad, bd, cd, _ = (np.asarray(m) for m in c2d_zoh(rom, dt))
+    m = np.block([[ad, bd @ np.asarray(k.C)], [sign * np.asarray(k.B) @ cd, np.asarray(k.A)]])
+    return float(np.abs(np.linalg.eigvals(m)).max())
+
+
+def synthesis(ops: tuple, u0: np.ndarray, p0: np.ndarray, counters, card: str) -> None:
+    """Phases 37-39: a reduced model and LQG synthesis from phase 34's
+    operators (host), the example's three candidates as one B = 3 rollout,
+    and the population search: BATCH candidate compensators a generation,
+    scored by one closed-loop rollout of the cylinder through K1, K2, P1 and
+    S."""
+    import flowcontrol_tpu_torch.utils.lticontrol as ltc
+    from flowcontrol_tpu_torch.core.controller import Controller, stack_controllers
+    from flowcontrol_tpu_torch.examples.synthesize_controller import lqg_population_cost
+    from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
+    from flowcontrol_tpu_torch.utils.linalg import modal_rom
+    from flowcontrol_tpu_torch.utils.optim_algs import minimize
+
+    a, e, b, c, h_host = ops
+    t_phases = time.perf_counter()
+
+    # ── phase 37: the reduced model and the synthesis, on the host ──────────
+    t0 = time.perf_counter()
+    rom, kept = modal_rom(a, e, b, c, shifts=(SIGMA,), k_per_shift=ROM_K)
+    t_rom = time.perf_counter() - t0
+    rom_err = abs(kept[0] - EIG_REF)
+    h_rom = rom.frequency_response(np.asarray(FREQ_WW))
+    log(f"phase 37: modal_rom(k_per_shift={ROM_K}, shifts=({SIGMA},)) {t_rom:.2f} s (two ARPACK "
+        f"calls, A and A^T): order {rom.nstates}, {rom.ninputs} inputs, {rom.noutputs} outputs; "
+        f"kept {np.round(kept, 8).tolist()}, |kept[0] - EIG_REF| = {rom_err:.3e} (tol "
+        f"{EIG_REF_TOL}); poles {np.round(np.linalg.eigvals(rom.A), 8).tolist()}")
+    for w, hr, hh in zip(FREQ_WW, h_rom, h_host):
+        log(f"phase 37: H(j{w}) ROM {np.round(hr, 6).tolist()} | host (phase 36) "
+            f"{np.round(hh, 6).tolist()}; max|H_rom - H_host| / max|H_host| "
+            f"{np.abs(hr - hh).max() / np.abs(hh).max():.3e} (printed, not held)")
+    if not rom_err <= EIG_REF_TOL:
+        raise AssertionError(f"phase 37: the ROM's leading eigenvalue {kept[0]} is {rom_err:.3e} "
+                             f"from EIG_REF")
+    stable = {1.0: [], -1.0: []}
+    for qx in LQG_GRID:
+        k, _, _ = ltc.lqg_regulator(rom, qx, 1.0, 1.0, 1.0)
+        absc = {sg: float(np.linalg.eigvals(rom.feedback(k, sign=sg).A).real.max())
+                for sg in stable}
+        for sg, v in absc.items():
+            stable[sg].append(v < 0)
+        log(f"phase 37: lqg_regulator(rom, qx={qx}, 1, 1, 1): order {k.nstates}; the ROM closed "
+            f"loop's spectral abscissa {absc[1.0]:+.6f} (sign +1), {absc[-1.0]:+.6f} (sign -1)")
+    kd, _, _ = ltc.dlqg_regulator(rom, DLQG_DT)
+    log(f"phase 37: dlqg_regulator(rom, dt={DLQG_DT}): the sampled ROM loop's spectral radius "
+        f"{sampled_radius(rom, kd, DLQG_DT, 1.0):.6f} (sign +1), "
+        f"{sampled_radius(rom, kd, DLQG_DT, -1.0):.6f} (sign -1)")
+    signs = [sg for sg, ok in stable.items() if all(ok)]
+    if len(signs) != 1:
+        raise AssertionError(f"phase 37: the grid's ROM loops are stable under signs {signs}")
+    sign = signs[0]
+    log(f"phase 37: feedback sign {sign:+.0f}: the one under which every grid candidate "
+        f"stabilizes the ROM (the Stepper feeds u = Cd xk + Dd (sign y)); "
+        f"examples/synthesize_controller.py rolls with -1")
+
+    # ── phase 38: the example's three candidates at full width, B = 3 ──────
+    fm = CylinderFlowSolver.make_default(Re=RE, num_steps=SYN_STEPS, device="cuda",
+                                         stepper_options={"force_substructure": True})
+    fm._assign_steady_state(u0, p0)
+    fm.initialize_time_stepping()
+    t0 = time.perf_counter()
+    st = fm.stepper  # the host multifrontal factorization
+    t_factor = time.perf_counter() - t0
+    dt = fm.params_time.dt
+    up0, y0 = fm._carry.u_n.clone(), np.asarray(fm.y_meas, dtype=float)
+    cands = [Controller(k.A, k.B, k.C, k.D)
+             for k in (ltc.lqg_regulator(rom, qx, 1.0, 1.0, 1.0)[0] for qx in LQG_GRID)]
+    roll = st.closed_loop_fn(SYN_STEPS, sign)
+    nc = len(cands)
+    args3 = (st.init_carry(up0.expand(nc, -1).contiguous()),
+             stack_controllers(cands, dt, dtype=np.float32), np.repeat(y0[None], nc, 0))
+    for cnt in counters:
+        cnt.launches = 0
+    t_b3 = []
+    for _ in range(2):  # the first run builds S's plans and captures the graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, (ys3, des3, us3, div3) = roll(*args3)
+        torch.cuda.synchronize()
+        t_b3.append(time.perf_counter() - t0)
+        if len(t_b3) == 1:
+            launches3, first3 = [cnt.launches for cnt in counters], ys3
+    if not (bool(torch.isfinite(ys3).all() and torch.isfinite(des3).all())
+            and not bool(div3.any()) and torch.equal(first3, ys3)):
+        raise AssertionError("phase 38: a B = 3 member is not finite, or the two runs differ")
+    errs = []
+    for i, k in enumerate(cands):
+        k.reset()
+        fm._carry = st.init_carry(up0)
+        y, ys1 = y0, []
+        for _ in range(SYN_STEPS):
+            y = fm.step(k.step(sign * y, dt))
+            ys1.append(y)
+        errs.append(rel_err(ys3[:, i].double().cpu(), torch.as_tensor(np.asarray(ys1)))[0])
+    _, open_out = st.rollout_open_loop(st.init_carry(up0), np.zeros((SYN_STEPS, st.n_act)))
+    de_open = float(open_out.dE[-1])
+    log(f"phase 38: multifrontal Stepper (force_substructure) factored in {t_factor:.2f} s; "
+        f"{nc} LQG candidates (qx {list(LQG_GRID)}, sign {sign:+.0f}) as one B = {nc} rollout of "
+        f"{SYN_STEPS} steps in {t_b3[0]:.2f} s (S's plans and the capture included) and "
+        f"{t_b3[1]:.2f} s again, bitwise equal ({nc * SYN_STEPS / t_b3[1]:.1f} aggregate "
+        f"steps/s); launches of the first {dict(zip(LABELS, launches3))}; terminal "
+        f"dE {des3[-1].double().cpu().numpy().tolist()}, open loop {de_open:.6e}; members "
+        f"against their fs.step + Controller.step loops, y max|b-s|/max|s| "
+        f"{[f'{v:.3e}' for v in errs]} (tol {SYN_TOL:g})")
+    if launches3[4] == 0 or launches3[1] or launches3[2]:
+        raise AssertionError(f"phase 38: B = {nc} launches {launches3}: F expected, K2/P1 not")
+    if not max(errs) <= SYN_TOL:
+        raise AssertionError(f"phase 38: members against their single streams: {errs}")
+
+    # ── phase 39: the population search, BATCH candidates a generation ──────
+    carry_b = st.init_carry(up0.expand(BATCH, -1).contiguous())
+    y0_b = np.repeat(y0[None], BATCH, 0)
+    gens: list[dict] = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed_roll(carry, k_mats, yk):
+        g = gens[-1]
+        g["host_s"] = time.perf_counter() - g["t0"]  # synthesis, ZOH, stacking
+        torch.cuda._sleep(200_000_000)  # ~100 ms: the host enqueues the rollout ahead of it
+        for cnt in counters:
+            cnt.launches = 0
+        start.record()
+        out = roll(carry, k_mats, yk)
+        end.record()
+        torch.cuda.synchronize()
+        g["launches"] = [cnt.launches for cnt in counters]
+        g["device_s"] = start.elapsed_time(end) / 1e3
+        g["captured"] = captured(st)
+        return out
+
+    cost_b = lqg_population_cost(timed_roll, carry_b, y0_b, rom, dt)
+
+    def batch_cost(thetas):
+        gens.append({"t0": time.perf_counter(), "thetas": np.array(thetas)})
+        costs = cost_b(thetas)
+        gens[-1].update(costs=costs, wall_s=time.perf_counter() - gens[-1]["t0"])
+        return costs
+
+    captured0 = captured(st)
+    t0 = time.perf_counter()
+    res = minimize(None, np.zeros(4), "pop", POP_OPTIONS, verbose=False, batch_costfun=batch_cost)
+    t_search = time.perf_counter() - t0
+    steps = BATCH * SYN_STEPS
+    for i, g in enumerate(gens):
+        n_inf = int(np.isinf(g["costs"]).sum())
+        log(f"phase 39: generation {i + 1}: host {g['host_s']:.3f} s (lqg_regulator x {BATCH}, "
+            f"ZOH, stacking), device {g['device_s']:.3f} s (queued CUDA events: {steps / g['device_s']:.1f} "
+            f"aggregate steps/s), wall {g['wall_s']:.3f} s; best cost "
+            f"{np.min(g['costs']):.6e}, +inf {n_inf}/{BATCH}; captured graphs {g['captured']}; "
+            f"launches {dict(zip(LABELS, g['launches']))} ({g['launches'][1] / SYN_STEPS:.2f} K2 and "
+            f"{g['launches'][2] / SYN_STEPS:.2f} P1 a step, the borrowed first step included)")
+        if n_inf > BATCH // 2:
+            raise AssertionError(f"phase 39: generation {i + 1}: {n_inf} candidates score +inf")
+    if captured(st) != captured0 + 1 or any(g["captured"] != captured0 + 1 for g in gens):
+        raise AssertionError(f"phase 39: captured graphs {captured0} before, "
+                             f"{[g['captured'] for g in gens]} after each generation")
+    device_s = sum(g["device_s"] for g in gens)
+    log(f"phase 39: search {len(gens)} generations x {BATCH} in {t_search:.2f} s wall: "
+        f"{len(gens) * steps / t_search:.1f} aggregate steps/s end to end, "
+        f"{len(gens) * steps / device_s:.1f} on the device (PR 9's B = {BATCH} closed-loop graph: "
+        f"29,396-29,556); host share of the wall "
+        f"{sum(g['host_s'] for g in gens) / t_search:.3f}; res.x {res.x.tolist()}, res.fun "
+        f"{res.fun:.6e}, nfev {res.nfev} ({card})")
+    inf_thetas = [th for g in gens for th, cost in zip(g["thetas"], g["costs"]) if np.isinf(cost)]
+    failed = 0
+    for th in inf_thetas:
+        try:
+            ltc.lqg_regulator(rom, *(10.0 ** th))
+        except (np.linalg.LinAlgError, ValueError):
+            failed += 1
+    log(f"phase 39: {len(inf_thetas)} candidates scored +inf: {failed} failed the Riccati "
+        f"solve, {len(inf_thetas) - failed} diverged in the rollout")
+    rerun = batch_cost(gens[0]["thetas"])
+    if not np.array_equal(rerun, gens[0]["costs"]):
+        raise AssertionError("phase 39: generation 1 re-run does not give the same costs")
+    # res.x, theta0 and the open loop, each a single stream (B = 1) through F
+    carry_1, y0_1 = st.init_carry(up0[None]), y0[None]
+    for cnt in counters:
+        cnt.launches = 0
+    cost_1 = lqg_population_cost(roll, carry_1, y0_1, rom, dt)
+    best_1 = float(cost_1(res.x[None])[0])
+    launches1 = [cnt.launches for cnt in counters]
+    theta0_1 = float(cost_1(np.zeros((1, 4)))[0])
+    n = rom.nstates
+    zero = tuple(np.zeros((1,) + s, dtype=np.float32)
+                 for s in ((n, n), (n, rom.noutputs), (rom.ninputs, n), (rom.ninputs, rom.noutputs)))
+    _, (ys_o, _, _, _) = roll(carry_1, zero, y0_1)
+    open_1 = float((ys_o.double() ** 2).sum() * dt)
+    rel = abs(best_1 - res.fun) / abs(res.fun)
+    log(f"phase 39: generation 1 re-run bitwise equal; res.x single stream (B = 1, launches "
+        f"{dict(zip(LABELS, launches1))}) cost {best_1:.6e} against its batched {res.fun:.6e}: "
+        f"relative {rel:.3e} (tol {SYN_TOL:g}); theta0 {theta0_1:.6e}, open loop {open_1:.6e} "
+        f"over the same {SYN_STEPS} steps")
+    if launches1[4] == 0 or launches1[1] or launches1[2]:
+        raise AssertionError(f"phase 39: B = 1 launches {launches1}: F expected, K2/P1 not")
+    if not rel <= SYN_TOL:
+        raise AssertionError(f"phase 39: res.x's single-stream cost is {rel:.3e} from its batched")
+    log(f"phases 37-39: {time.perf_counter() - t_phases:.1f} s wall ({card})")
 
 
 def main() -> int:
@@ -2518,7 +2772,11 @@ def main() -> int:
     s_launches = [s_launches[0] + s_new[0], s_launches[1] + s_new[1]]
 
     # ── phases 34-36: the analysis path on a card holding nothing else ──────
-    analysis(u0_cyl, p0_cyl, card)
+    ops = analysis(u0_cyl, p0_cyl, card)
+    free_card()
+
+    # ── phases 37-39: synthesis and the population search on its operators ──
+    synthesis(ops, u0_cyl, p0_cyl, counters, card)
 
     src = "flowcontrol_tpu_torch/csrc/"
     f_launches = mfp["launches"][4] + cav["launches"][4]

@@ -3,7 +3,7 @@
 The counterpart of ``flowcontrol_tpu/parallel/dofsharding.py``, as far as
 the multifrontal ordering needs it: :func:`mixed_dof_coordinates`. The
 dof-sharded operators of that module (halo exchange over several devices)
-are not ported yet (ROADMAP.md, Queue 1 #13).
+are not ported yet (ROADMAP.md, "Multi-GPU").
 """
 
 from __future__ import annotations

@@ -27,10 +27,11 @@ past the size where one dense factor fits the device: factor storage is
 
 The host half is transcribed from the JAX package and gives bitwise the
 same tree, stacks and tables. Not carried over: the disk factor cache and
-its streaming warm load (ROADMAP.md, Queue 1 #7); the TPU A/B knobs
-``layout='ji'`` and ``einsum`` and the concat-growth sweep, which exist for
-XLA's relayout copies on the TPU (replaced: one dataflow, results written in
-place); ``FC_MF_PACK=bucket`` and ``FC_MF_INBOX=full`` (still to port).
+its streaming warm load (ROADMAP.md, "The rest of the multifrontal
+solve"); the TPU A/B knobs ``layout='ji'`` and ``einsum`` and the
+concat-growth sweep, which exist for XLA's relayout copies on the TPU
+(replaced: one dataflow, results written in place); ``FC_MF_PACK=bucket``
+and ``FC_MF_INBOX=full`` (still to port).
 """
 
 from __future__ import annotations

@@ -93,6 +93,14 @@ package, so it also runs on a GPU machine without them:
   runs through ``compiled_step``'s graph. The pinball's MIMO closed loop
   with the committed 22-state 3 x 3 LQG (u = +K(y)), 6 graphed steps at
   B = 2 (F) and B = 64 (K2, P1), bitwise equal to the eager loop.
+- The controller search (``examples/synthesize_controller.py``
+  ``lqg_population_cost``, ``utils/optim_algs.py``): the coarse cylinder's
+  B = 256 closed-loop graph run with one set of controllers, then replayed
+  with another, bitwise equal to the eager loop with the second set; a
+  2-generation, popsize-16 search over the LQG weights of a reduced model
+  of the coarse cylinder on the card (f32, K2, P1, S) against the same
+  search on the CPU in f64: every cost within rtol 5e-4, the same elites
+  and ``res.x``; ``utils/profiling.py`` ``device_memory_stats`` on the card.
 - The analysis path's device functions (``utils/linalg.py``) on a sparse
   400-dof descriptor system with a singular E: ``eig_arnoldi_dense_device``
   on the card in complex64 against the same function on the CPU in
@@ -1118,6 +1126,115 @@ def test_torch_cuda_graph_lqg_closed_loop_matches_eager(cuda, pin_base_flows, ba
                                                   for f in CARRY_FIELDS]:
         assert torch.equal(got, want)
     assert carry.it == c.it == 6 and float((us_g[:, 0] - us_g[:, -1]).abs().max()) > 0
+
+
+# ── The controller search ───────────────────────────────────────────────────
+
+
+@pytest.mark.cuda
+def test_torch_cuda_graph_closed_loop_new_controllers(cuda, pin_base_flows, tmp_path,
+                                                      monkeypatch):
+    """The B = 256 closed-loop graph (coarse cylinder, multifrontal: K2, P1,
+    S) run with one set of controllers, then replayed with another: the
+    replay bitwise equal to the eager loop of Stepper.step with the second
+    set (the rollout copies its inputs into its fixed buffers on every
+    call)."""
+    st, up, _ = _graph_case(pin_base_flows, "cylinder", "multifrontal", 256, tmp_path,
+                            monkeypatch)
+    first = _mats(st, 256, cuda)
+    second = [first[0], first[1], 1.5 * first[2], -0.5 * first[3]]
+    y0 = torch.as_tensor(up, dtype=st.dtype, device=cuda) @ st._dev["c"].T
+    roll = st.make_rollout_closed_loop(20)
+    _, (ys1, _, _, _) = roll(st.init_carry(up), first, y0)
+    carry, (ys_g, des_g, us_g, _) = roll(st.init_carry(up), second, y0)
+    progs = [p for p in st._programs.values() if p.graph is not None]
+    # 19 graph runs a call; the first call's first run is the warm-up and capture
+    assert len(progs) == 1 and progs[0].replays == 2 * 19 - 1
+    c, y, xk = st.init_carry(up), y0, torch.zeros(second[0].shape[:-1], dtype=st.dtype,
+                                                  device=cuda)
+    ys, des, uu = [], [], []
+
+    def mv(a, v):
+        return torch.einsum("...ij,...j->...i", a, v)
+
+    for _ in range(20):
+        u = mv(second[2], xk) + mv(second[3], -y)
+        xk = mv(second[0], xk) + mv(second[1], -y)
+        c, out = st.step(c, u)
+        y = out.y
+        ys.append(y)
+        des.append(out.dE)
+        uu.append(u)
+    for got, want in [(ys_g, torch.stack(ys)), (des_g, torch.stack(des)),
+                      (us_g, torch.stack(uu))] + [(getattr(carry, f), getattr(c, f))
+                                                  for f in CARRY_FIELDS]:
+        assert torch.equal(got, want)
+    assert float((ys1 - ys_g).abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_torch_cuda_population_search_matches_cpu(cuda, pin_base_flows, tmp_path):
+    """A 2-generation search, popsize 16, 30 steps: lqg_population_cost over
+    a reduced model of the coarse cylinder (modal_rom, two eigenpairs at
+    0.1 + 0.8j, from the CPU solver's operators), on the card (f32,
+    force_substructure: K2, P1, S) and on the CPU (f64, host LU) from the
+    same initial condition: every cost within rtol 5e-4, the same elites,
+    and res.x equal."""
+    from flowcontrol_tpu_torch.core.operatorgetter import OperatorGetter
+    from flowcontrol_tpu_torch.examples.synthesize_controller import lqg_population_cost
+    from flowcontrol_tpu_torch.utils.linalg import modal_rom
+    from flowcontrol_tpu_torch.utils.optim_algs import minimize
+
+    mesh, u0, p0 = pin_base_flows["cylinder"]
+    pop, steps = 16, 30
+
+    def solver(device, **kw):
+        fs = CylinderFlowSolver.make_default(Re=100, mesh=mesh, num_steps=steps, device=device,
+                                             path_out=tmp_path / str(device), **kw)
+        fs._assign_steady_state(u0, p0)
+        fs.initialize_time_stepping()
+        return fs
+
+    fc = solver("cpu", precision="f64", solver_backend="host_lu")
+    fg = solver(cuda, stepper_options={"force_substructure": True})
+    rom, _ = modal_rom(*OperatorGetter(fc).get_all(autodiff=False), shifts=(0.1 + 0.8j,),
+                       k_per_shift=2)
+    fc.stepper  # the initial condition's carry
+    up = np.repeat(fc._carry.u_n.numpy()[None], pop, 0)
+    y0 = np.repeat(np.asarray(fc.y_meas)[None], pop, 0)
+    runs = {}
+    for name, fs, dtype in (("cpu", fc, np.float64), ("cuda", fg, np.float32)):
+        st, seen = fs.stepper, []
+        cost = lqg_population_cost(st.closed_loop_fn(steps, 1.0), st.init_carry(up), y0, rom,
+                                   fs.params_time.dt, dtype=dtype)
+
+        def recorded(thetas, cost=cost, seen=seen):
+            seen.append((np.array(thetas), cost(thetas)))
+            return seen[-1][1]
+
+        res = minimize(None, np.zeros(4), "pop", {"n_iter": 2, "popsize": pop, "sigma0": 0.5,
+                                                  "seed": 0}, verbose=False,
+                       batch_costfun=recorded)
+        runs[name] = (seen, res)
+    (seen_c, res_c), (seen_g, res_g) = runs["cpu"], runs["cuda"]
+    for (th_c, c_c), (th_g, c_g) in zip(seen_c, seen_g):
+        assert np.allclose(th_g, th_c, rtol=0, atol=1e-12)
+        assert np.isfinite(c_c).all() and np.allclose(c_g, c_c, rtol=5e-4, atol=0)
+        assert set(np.argsort(c_g)[: pop // 4]) == set(np.argsort(c_c)[: pop // 4])
+    assert np.allclose(res_g.x, res_c.x, rtol=0, atol=1e-12)
+    print(f"search on the card against the CPU: max relative cost difference "
+          f"{max(np.abs(g[1] / c[1] - 1).max() for g, c in zip(seen_g, seen_c)):.3e}")
+
+
+@pytest.mark.cuda
+def test_torch_cuda_device_memory_stats(cuda):
+    from flowcontrol_tpu_torch.utils.profiling import device_memory_stats
+
+    x = torch.ones(1 << 20, device=cuda)
+    stats = device_memory_stats()
+    assert sorted(stats) == [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    assert stats["cuda:0"]["allocated_bytes.all.current"] >= x.numel() * 4
+    assert device_memory_stats("cpu") == {}
 
 
 # ── The analysis path's device functions ────────────────────────────────────

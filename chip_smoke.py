@@ -240,6 +240,25 @@ fails or no CUDA device is present:
     launches; one graph captured for the whole search; generation 1 re-run
     bitwise; ``res.x`` as a B = 1 rollout through F within 5e-4 of its
     batched cost; the costs of theta = 0 and of the open loop.
+40. checkpoints and the restart, on a card holding nothing of the earlier
+    phases, in a temporary directory, with ``import h5py`` made to fail
+    for the whole phase: the default cylinder's mesh written by
+    ``write_xdmf_mesh`` and read back through ``make_default(meshpath=...)``
+    (cells and coordinates bitwise); phase 3's base flow written to
+    ``steady/`` by ``write_field_snapshot`` with its ``meta.json`` and read
+    back by ``load_steady_state()`` (bitwise); a closed loop of
+    RESTART_STEPS (40) ``fs.step`` calls (multifrontal: K1, F; phase 13's
+    two-state controller on sensor 1, the same u on both actuators) with
+    ``save_every`` RESTART_SAVE (20): the t = 0 snapshot, checkpoints at 20
+    and 40, the sidecar, the CSV and the ``.xdmf`` indexes, exact
+    launches; a second solver restarted at T = 20 dt from the sidecar with
+    the controller's state from step 20: order 2, one system built (no
+    borrowed BDF1 operator), exact launches for 20 steps (K1 one a step, F
+    two: no borrowed sweep), each restarted y within RESTART_TOL (1e-5) of
+    the peak |y| of the continuous run's steps 21-40; the seconds of both
+    Steppers' builds; one checkpoint's write and read ms and its bytes on
+    disk; every Binary DataItem of the U and P indexes read at its
+    ``Seek`` equal to the vertex slice and the mesh.
 
 ``fs.step`` runs ``Stepper.compiled_step``: from the second step of a run
 a CUDA graph of the step, so phases 3, 6, 10 and 17 time and count the
@@ -2378,6 +2397,219 @@ def synthesis(ops: tuple, u0: np.ndarray, p0: np.ndarray, counters, card: str) -
     log(f"phases 37-39: {time.perf_counter() - t_phases:.1f} s wall ({card})")
 
 
+# ── Checkpoints and the restart (phase 40) ──────────────────────────────────
+
+RESTART_STEPS = 40  # the continuous run
+RESTART_SAVE = 20  # a checkpoint every RESTART_SAVE steps; the restart at the first
+RESTART_TOL = 1e-5  # restarted y against the continuous run's tail, relative to its peak
+
+
+def restart_phase(u0: np.ndarray, p0: np.ndarray, counters, card: str) -> None:
+    """Phase 40: the default cylinder's mesh written and read back, phase 3's
+    base flow through the steady-state files, a closed loop of RESTART_STEPS
+    steps with a checkpoint every RESTART_SAVE, and a second solver
+    restarted from the sidecar at BDF2 (multifrontal, K1 and F), in a
+    temporary directory, with h5py unimportable throughout."""
+    import dataclasses
+    import importlib.util
+    import tempfile
+    import xml.etree.ElementTree as ET
+    from pathlib import Path
+
+    from flowcontrol_tpu_torch.core.controller import Controller
+    from flowcontrol_tpu_torch.core.exporter import FlowExporter
+    from flowcontrol_tpu_torch.mesh.io import (
+        read_data_item,
+        read_field_snapshot,
+        write_field_snapshot,
+        write_xdmf_mesh,
+    )
+    from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver, default_cylinder_mesh
+
+    t_phase = time.perf_counter()
+    h5py_installed = importlib.util.find_spec("h5py") is not None
+    saved = sys.modules.get("h5py")
+    sys.modules["h5py"] = None  # an import of h5py raises for the whole phase
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_restart_") as tmp:
+            out = Path(tmp)
+            opts = dict(Re=RE, device="cuda", stepper_options={"force_substructure": True},
+                        path_out=out, meshpath=out / "mesh" / "cylinder.xdmf")
+            # 1. mesh I/O
+            mesh = default_cylinder_mesh()
+            t0 = time.perf_counter()
+            write_xdmf_mesh(opts["meshpath"], mesh)
+            t_write_mesh = time.perf_counter() - t0
+            mesh_bytes = sum(f.stat().st_size for f in (out / "mesh").iterdir())
+            t0 = time.perf_counter()
+            fs = CylinderFlowSolver.make_default(num_steps=RESTART_STEPS,
+                                                 save_every=RESTART_SAVE, **opts)
+            t_make = time.perf_counter() - t0
+            same_mesh = (np.array_equal(fs.mesh.coords, mesh.coords)
+                         and np.array_equal(fs.mesh.cells, mesh.cells))
+            log(f"phase 40: h5py installed: {h5py_installed}, unimportable for the phase; the "
+                f"default mesh ({mesh.num_cells} cells, {fs.space.n_dofs} dofs) written in "
+                f"{t_write_mesh * 1e3:.1f} ms ({mesh_bytes} bytes), make_default(meshpath=...) {t_make:.2f} s; cells and coordinates "
+                f"bitwise the generated mesh's: {same_mesh}")
+            if not same_mesh or fs.space.n_dofs != NDOFS_REF:
+                raise AssertionError("phase 40: the mesh read back differs from the generated one")
+            # 2. the base flow through steady/
+            write_field_snapshot(fs.paths.U0, "U0", u0, 0.0, append=False)
+            write_field_snapshot(fs.paths.P0, "P0", p0, 0.0, append=False)
+            fs.paths.steady_meta.write_text(json.dumps({"mesh_cells": fs.mesh.num_cells}))
+            fs.load_steady_state()
+            same_base = (np.array_equal(fs.fields.U0, u0) and np.array_equal(fs.fields.P0, p0))
+            log(f"phase 40: phase 3's base flow written to steady/ and read back by "
+                f"load_steady_state(): bitwise equal: {same_base}")
+            if not same_base:
+                raise AssertionError("phase 40: the base flow read back differs")
+            # 3. the continuous closed loop with checkpoints
+            fs.initialize_time_stepping()
+            for cnt in counters:
+                cnt.launches = 0
+            t0 = time.perf_counter()
+            st = fs.stepper
+            torch.cuda.synchronize()
+            t_factor = time.perf_counter() - t0
+            dt = fs.params_time.dt
+            (a, b, c, d), _, _ = controller_population(st, dt)
+            k = Controller.from_matrices(A=a, B=b, C=c, D=d)
+            y, ys, kx = fs.y_meas, [], None
+            t0 = time.perf_counter()
+            for i in range(RESTART_STEPS):
+                y = fs.step(k.step(-y[:1], dt))
+                ys.append(y)
+                if i + 1 == RESTART_SAVE:
+                    kx = k.x.copy()
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t0
+            ys = np.asarray(ys)
+            launches = [cnt.launches for cnt in counters]
+            solves = (1 + st.BORROW_ITERS) + (RESTART_STEPS - 1) * 2
+            want = [RESTART_STEPS + 1, 0, 0, 0, solves, 0, 0]
+            mf = st._solvers[-1]
+            log(f"phase 40: continuous run: solve kinds {st._solver_kinds}; Stepper built in "
+                f"{t_factor:.2f} s (host multifrontal: ordering+f64 factorization "
+                f"{mf.timings['ordering+factorization']:.2f} s, total {mf.timings['total']:.2f} "
+                f"s; BDF1 kept as the borrowed step's f64 operator); {RESTART_STEPS} steps of the "
+                f"closed loop with checkpoints at {RESTART_SAVE} and {RESTART_STEPS} in "
+                f"{t_run:.2f} s; launches K1/K2/P1/K3/F/S/R {launches} (expected {want})")
+            if launches != want or not np.isfinite(ys).all():
+                raise AssertionError(f"phase 40: continuous run launches {launches} or y not finite")
+            meta = json.loads(fs.paths.metadata.read_text())
+            n_rows = len(fs.paths.timeseries.read_text().splitlines())
+            log(f"phase 40: sidecar {fs.paths.metadata.name}: {meta}; CSV "
+                f"{fs.paths.timeseries.name}: {n_rows} lines")
+            if meta["checkpoints_written"] != RESTART_STEPS // RESTART_SAVE or \
+                    n_rows != RESTART_STEPS + 2:
+                raise AssertionError("phase 40: sidecar or CSV not as written")
+            del st, mf
+            fs._stepper = fs._carry = fs._step_compiled = None
+            free_card()
+            # 4. the restart from the sidecar
+            t_restart = RESTART_SAVE * dt
+            fs2 = CylinderFlowSolver.make_default(num_steps=RESTART_STEPS - RESTART_SAVE,
+                                                  Tstart=t_restart, **opts)
+            fs2.load_steady_state()
+            t0 = time.perf_counter()
+            fs2.initialize_time_stepping(Tstart=t_restart)
+            t_read = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            st2 = fs2.stepper
+            torch.cuda.synchronize()
+            t_factor2 = time.perf_counter() - t0
+            mf2 = st2._solvers[-1]
+            for cnt in counters:
+                cnt.launches = 0
+            k.x = kx.copy()
+            y, ys2 = ys[RESTART_SAVE - 1], []
+            for _ in range(RESTART_STEPS - RESTART_SAVE):
+                y = fs2.step(k.step(-y[:1], dt))
+                ys2.append(y)
+            torch.cuda.synchronize()
+            launches2 = [cnt.launches for cnt in counters]
+            n2 = RESTART_STEPS - RESTART_SAVE
+            want2 = [n2, 0, 0, 0, 2 * n2, 0, 0]
+            tail = ys[RESTART_SAVE:]
+            err = float(np.abs(np.asarray(ys2) - tail).max() / np.abs(tail).max())
+            log(f"phase 40: restart at T = {t_restart:g} from the sidecar ({t_read * 1e3:.1f} ms "
+                f"to find and read it): order {fs2.order}, solve kinds {st2._solver_kinds}, "
+                f"{len(st2._solvers)} system built, borrowed operator: {bool(st2._dev['a_bc'])}; "
+                f"Stepper built in {t_factor2:.2f} s (ordering+f64 factorization "
+                f"{mf2.timings['ordering+factorization']:.2f} s, total {mf2.timings['total']:.2f} "
+                f"s), the continuous run's {t_factor:.2f} s")
+            log(f"phase 40: {n2} restarted steps: launches K1/K2/P1/K3/F/S/R {launches2} "
+                f"(expected {want2}: K1 one a step, F two a step, no borrowed sweep); "
+                f"max|y_restart - y_continuous| / max|y_continuous| over steps "
+                f"{RESTART_SAVE + 1}-{RESTART_STEPS}: {err:.3e} (tol {RESTART_TOL:g}); "
+                f"y[-1] {np.asarray(ys2)[-1].tolist()} | {tail[-1].tolist()}")
+            if (fs2.order != 2 or st2._solver_kinds != ["multifrontal"] or st2._dev["a_bc"]
+                    or launches2 != want2 or not err <= RESTART_TOL):
+                raise AssertionError(f"phase 40: the restart: order {fs2.order}, kinds "
+                                     f"{st2._solver_kinds}, launches {launches2}, error {err}")
+            # 5. the files: one checkpoint's write and read, its bytes, the indexes
+            io_dir = out / "io"
+            paths = dataclasses.replace(
+                fs.paths, U_restart=io_dir / "U.ckpt", Uprev_restart=io_dir / "Uprev.ckpt",
+                P_restart=io_dir / "P.ckpt", metadata=io_dir / "meta.json")
+            ex = FlowExporter(paths, fs.fields, fs.space, dt=dt, save_every=RESTART_SAVE)
+            writes = []
+            for j in range(3):
+                t0 = time.perf_counter()
+                ex.export_snapshots(fs.fields.u_n, fs.fields.u_nn, fs.fields.p_n, time=j * dt,
+                                    adjust_baseflow=1.0)
+                ex.write_metadata()
+                ex.write_paraview_index()
+                writes.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            for path, name in ((fs.paths.U_restart, "U"), (fs.paths.Uprev_restart, "U_n"),
+                               (fs.paths.P_restart, "P")):
+                read_field_snapshot(path, name, -1)
+            t_read_ckpt = (time.perf_counter() - t0) * 1e3
+            snap_bytes = sum(f.stat().st_size for f in (
+                fs.paths.U_restart / "U" / "1.npy", fs.paths.Uprev_restart / "U_n" / "1.npy",
+                fs.paths.P_restart / "P" / "1.npy"))
+            viz_bytes = sum(f.stat().st_size for f in (
+                fs.paths.U_restart / "viz" / "U" / "1.npy",
+                fs.paths.P_restart / "viz" / "P" / "1.npy"))
+            index_bytes = sum(p.with_suffix(".xdmf").stat().st_size
+                              for p in (fs.paths.U_restart, fs.paths.P_restart))
+            nv = fs.mesh.num_vertices
+            checked = 0
+            for path, name in ((fs.paths.U_restart, "U"), (fs.paths.P_restart, "P")):
+                xdmf = path.with_suffix(".xdmf")
+                for grid in ET.parse(xdmf).getroot().findall(".//Grid[@GridType='Uniform']"):
+                    kk = int(grid.get("Name").rsplit("_", 1)[1])
+                    snap = np.load(path / name / f"{kk}.npy")[:nv]
+                    if name == "U":
+                        snap = np.pad(snap, ((0, 0), (0, 1)))
+                    got = {tag: read_data_item(grid.find(f"{tag}/DataItem"), xdmf.parent)
+                           for tag in ("Attribute", "Geometry", "Topology")}
+                    if not (got["Attribute"].dtype == snap.dtype
+                            and np.array_equal(got["Attribute"], snap)
+                            and np.array_equal(got["Geometry"], fs.mesh.coords)
+                            and np.array_equal(got["Topology"], fs.mesh.cells)):
+                        raise AssertionError(f"phase 40: {xdmf.name} grid {kk} differs from "
+                                             f"the vertex slice")
+                    checked += 1
+            log(f"phase 40: one checkpoint (three snapshot files, the sidecar, the U and P "
+                f"indexes) written in {', '.join(f'{w:.1f}' for w in writes)} ms (first, second, "
+                f"third into a new directory), read back (U, U_n, P) in {t_read_ckpt:.1f} ms; "
+                f"bytes on disk per checkpoint: {snap_bytes} of snapshots (f64) + {viz_bytes} "
+                f"of vertex slices, beside the sidecar's {fs.paths.metadata.stat().st_size} and "
+                f"the indexes' {index_bytes} (rewritten at every checkpoint); {checked} grids of the U and P indexes: every "
+                f"Binary DataItem read at its Seek equals the vertex slice, the mesh's "
+                f"coordinates and cells; the phase took {time.perf_counter() - t_phase:.1f} s "
+                f"({card})")
+            del fs, fs2, st2, mf2
+    finally:
+        if saved is None:
+            sys.modules.pop("h5py", None)
+        else:
+            sys.modules["h5py"] = saved
+    free_card()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
@@ -2777,6 +3009,11 @@ def main() -> int:
 
     # ── phases 37-39: synthesis and the population search on its operators ──
     synthesis(ops, u0_cyl, p0_cyl, counters, card)
+
+    # ── phase 40: checkpoints and the restart at BDF2, on a card holding
+    # nothing of the earlier phases
+    free_card()
+    restart_phase(u0_cyl, p0_cyl, counters, card)
 
     src = "flowcontrol_tpu_torch/csrc/"
     f_launches = mfp["launches"][4] + cav["launches"][4]

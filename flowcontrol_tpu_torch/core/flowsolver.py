@@ -12,8 +12,12 @@ time-stepping hot loop is a :class:`Stepper` on ``ParamSolver.device``.
 The closed loop runs through ``step`` with the port's ``Controller``
 (``u = K.step(y, dt); fs.step(u_ctrl=u)``); rollouts of many streams and the
 fused closed loop are the Stepper's (``rollout_open_loop``,
-``rollout_closed_loop``). Not ported yet (ROADMAP.md): mesh files, field
-snapshots and restart (``save_every > 0``, ``Tstart > 0``). Subclass API:
+``rollout_closed_loop``). Meshes, snapshots, the restart sidecar and the
+steady state go to and come from the port's files (``mesh/io.py``: ``.xdmf``
+indexes over ``.npy`` arrays, ``.ckpt`` snapshot directories), and the
+JAX package's HDF5 files are read through h5py where it is installed; a
+restart (``Tstart > 0``) steps at BDF2 from its first step, as the JAX
+package's does. Subclass API:
 
     _make_boundaries() -> dict[str, predicate(midpoints)->mask]
     _make_bcs()        -> BoundaryConditions (first bcu entry MUST be inlet)
@@ -22,6 +26,7 @@ snapshots and restart (``save_every > 0``, ``Tstart > 0``). Subclass API:
 
 from __future__ import annotations
 
+import json
 import logging
 import time
 from abc import ABC, abstractmethod
@@ -57,6 +62,12 @@ from flowcontrol_tpu_torch.fem.projection import (
     project_velocity_nodal_constrained,
 )
 from flowcontrol_tpu_torch.mesh.dofmap import TaylorHoodSpace
+from flowcontrol_tpu_torch.mesh.io import (
+    SNAPSHOT_SUFFIX,
+    read_field_snapshot,
+    read_xdmf_mesh,
+    write_field_snapshot,
+)
 from flowcontrol_tpu_torch.utils.physics import get_div0_u_callable
 
 logger = logging.getLogger(__name__)
@@ -118,15 +129,10 @@ class FlowSolver(ABC):
             raise ValueError("actuator_list length does not match actuator_number")
         if len(params_control.sensor_list) != params_control.sensor_number:
             raise ValueError("sensor_list length does not match sensor_number")
-        if params_save.save_every:
-            raise NotImplementedError(
-                "field snapshots and restart checkpoints (save_every > 0) are "
-                "not ported yet; see ROADMAP.md"
-            )
-        if params_mesh.mesh is None:
-            raise NotImplementedError(
-                "reading mesh files is not ported yet: pass ParamMesh(mesh=...)"
-            )
+        if params_mesh.mesh is None and not params_mesh.meshpath.exists():
+            raise FileNotFoundError(f"Mesh file not found at {params_mesh.meshpath}")
+        if params_restart is not None and params_restart.Trestartfrom < 0:
+            raise ValueError("Trestartfrom must be non-negative")
 
     # ── Setup (ref: flowsolver.py:169-201) ───────────────────────────────────
 
@@ -134,7 +140,7 @@ class FlowSolver(ABC):
         self.fields = FlowFieldCollection()
         self.E0: float = 0.0
         self.paths = self._define_paths()
-        self.mesh = self.params_mesh.mesh
+        self.mesh = self._make_mesh()
         self.space = TaylorHoodSpace.build(self.mesh)
         self.geom = CellGeometry(self.space)
         self.boundaries = self._make_boundaries()  # dict name -> predicate
@@ -156,7 +162,14 @@ class FlowSolver(ABC):
             is_nonlinear=self.params_solver.is_eq_nonlinear,
             shift=self.params_solver.shift,
         )
-        self.exporter = FlowExporter(paths=self.paths)
+        self.exporter = FlowExporter(
+            paths=self.paths,
+            fields=self.fields,
+            space=self.space,
+            Tstart=self.params_time.Tstart,
+            dt=self.params_time.dt,
+            save_every=self.params_save.save_every,
+        )
         self._stepper: Stepper | None = None
         self._force_cols = self._make_force_columns()
         self.y_meas = np.zeros(self.params_control.sensor_number)
@@ -166,7 +179,8 @@ class FlowSolver(ABC):
         )
 
     def _define_paths(self) -> SimPaths:
-        """(ref: flowsolver.py:205-231) — only ``timeseries`` is written."""
+        """(ref: flowsolver.py:205-231); snapshot files are the port's
+        (``mesh/io.py``) where the JAX package writes ``.h5`` files."""
 
         def ext(T: float) -> str:
             return f"_restart{T:.3f}".replace(".", ",")
@@ -175,19 +189,27 @@ class FlowSolver(ABC):
         Trestartfrom = self.params_restart.Trestartfrom if self.params_restart else 0.0
         path_out = self.params_save.path_out
         return SimPaths(
-            U0=path_out / "steady" / "U0.h5",
-            P0=path_out / "steady" / "P0.h5",
+            U0=path_out / "steady" / ("U0" + SNAPSHOT_SUFFIX),
+            P0=path_out / "steady" / ("P0" + SNAPSHOT_SUFFIX),
             steady_meta=path_out / "steady" / "meta.json",
-            U=path_out / ("U" + ext(Trestartfrom) + ".h5"),
-            P=path_out / ("P" + ext(Trestartfrom) + ".h5"),
-            Uprev=path_out / ("Uprev" + ext(Trestartfrom) + ".h5"),
-            U_restart=path_out / ("U" + ext(Tstart) + ".h5"),
-            Uprev_restart=path_out / ("Uprev" + ext(Tstart) + ".h5"),
-            P_restart=path_out / ("P" + ext(Tstart) + ".h5"),
+            U=path_out / ("U" + ext(Trestartfrom) + SNAPSHOT_SUFFIX),
+            P=path_out / ("P" + ext(Trestartfrom) + SNAPSHOT_SUFFIX),
+            Uprev=path_out / ("Uprev" + ext(Trestartfrom) + SNAPSHOT_SUFFIX),
+            U_restart=path_out / ("U" + ext(Tstart) + SNAPSHOT_SUFFIX),
+            Uprev_restart=path_out / ("Uprev" + ext(Tstart) + SNAPSHOT_SUFFIX),
+            P_restart=path_out / ("P" + ext(Tstart) + SNAPSHOT_SUFFIX),
             timeseries=path_out / ("timeseries1D" + ext(Tstart) + ".csv"),
             metadata=path_out / ("meta" + ext(Tstart) + ".json"),
             mesh=self.params_mesh.meshpath,
         )
+
+    def _make_mesh(self):
+        if self.params_mesh.mesh is not None:
+            return self.params_mesh.mesh
+        logger.info(f"Mesh @ {self.params_mesh.meshpath}")
+        mesh = read_xdmf_mesh(self.params_mesh.meshpath)
+        logger.info(f"Mesh has {mesh.num_cells} cells")
+        return mesh
 
     def _load_actuators(self) -> None:
         for actuator in self.params_control.actuator_list:
@@ -333,14 +355,45 @@ class FlowSolver(ABC):
             raise ValueError(f"method must be 'newton' or 'picard', got {method!r}")
 
         field = FlowField(up0, self.space)
+        if self.params_save.save_every:
+            write_field_snapshot(self.paths.U0, "U0", field.u, 0.0, append=False)
+            write_field_snapshot(self.paths.P0, "P0", field.p, 0.0, append=False)
+            self.paths.steady_meta.parent.mkdir(parents=True, exist_ok=True)
+            self.paths.steady_meta.write_text(
+                json.dumps({"mesh_cells": self.mesh.num_cells}, indent=2)
+            )
         self._assign_steady_state(field.u.copy(), field.p.copy())
 
-    def load_steady_state(self, path: str | Path) -> None:
-        """Base flow from an ``.npz`` holding ``U0`` (n_vnodes, 2) and ``P0``
-        (nv,) — the format of the reference's ``models/_baseflows/``. Read as
-        plain arrays (no pickled objects)."""
-        with np.load(path, allow_pickle=False) as d:
-            self._assign_steady_state(np.asarray(d["U0"]), np.asarray(d["P0"]))
+    def load_steady_state(self, path_u_p: str | Path | Sequence[Path] | None = None) -> None:
+        """Base flow from the U0/P0 snapshot pair (default: the pair
+        ``compute_steady_state`` writes under ``path_out/steady``; a
+        ``meta.json`` beside U0 that records another cell count raises
+        ``ValueError``), or from one ``.npz`` path holding ``U0``
+        (n_vnodes, 2) and ``P0`` (nv,), the format of the reference's
+        ``models/_baseflows/``, read as plain arrays (no pickled objects)."""
+        if isinstance(path_u_p, (str, Path)):
+            with np.load(path_u_p, allow_pickle=False) as d:
+                self._assign_steady_state(np.asarray(d["U0"]), np.asarray(d["P0"]))
+            return
+        paths = path_u_p or (self.paths.U0, self.paths.P0)
+        self._check_steady_state_compatible(Path(paths[0]))
+        u0 = read_field_snapshot(paths[0], "U0", 0)
+        p0 = read_field_snapshot(paths[1], "P0", 0)
+        self._assign_steady_state(u0, p0)
+
+    def _check_steady_state_compatible(self, u0_path: Path) -> None:
+        meta_path = u0_path.parent / "meta.json"
+        try:
+            meta = json.loads(meta_path.read_text())
+        except FileNotFoundError:
+            meta = {}
+        stored = meta.get("mesh_cells")
+        if stored is not None and stored != self.mesh.num_cells:
+            raise ValueError(
+                f"Steady-state checkpoint at {u0_path.parent} was written with "
+                f"{stored} mesh cells, but the current mesh has "
+                f"{self.mesh.num_cells}."
+            )
 
     def _assign_steady_state(self, u0: np.ndarray, p0: np.ndarray) -> None:
         """Adopt a base flow: velocity (n_vnodes, 2) and pressure (nv,), e.g.
@@ -375,13 +428,17 @@ class FlowSolver(ABC):
     # ── Time stepping (ref: flowsolver.py:464-799) ───────────────────────────
 
     def initialize_time_stepping(self, Tstart: float = 0.0, ic=None) -> None:
-        if Tstart != 0.0:
-            raise NotImplementedError(
-                "restart from a checkpoint (Tstart > 0) is not ported yet; "
-                "see ROADMAP.md"
-            )
-        logger.info(f"Initialising from t={Tstart}")
-        u_, p_, u_n, u_nn, p_n = self._initialize_with_ic(ic)
+        """From the initial condition ``ic`` (``Tstart == 0``) or from the
+        checkpoint at ``Tstart``, found through a JSON sidecar in
+        ``path_out`` or, without one, ``ParamRestart``."""
+        restart_order = (
+            self.params_restart.restart_order if self.params_restart else "n/a"
+        )
+        logger.info(f"Initialising from t={Tstart}, restart_order={restart_order}")
+        if Tstart == 0.0:
+            u_, p_, u_n, u_nn, p_n = self._initialize_with_ic(ic)
+        else:
+            u_, p_, u_n, u_nn, p_n = self._initialize_at_time(Tstart)
         self.fields.u_ = u_
         self.fields.p_ = p_
         self.fields.u_n = u_n
@@ -421,7 +478,12 @@ class FlowSolver(ABC):
         bcset = self._bcset_perturbation()
         u_n = self._project_ic_velocity(self.fields.ic.u, bcset)
         p_n = self.fields.ic.p.copy()
-        return u_n.copy(), p_n.copy(), u_n, u_n.copy(), p_n
+        u_nn = u_n.copy()
+        if self.params_save.save_every:
+            self.exporter.export_snapshots(
+                u_n, u_nn, p_n, time=0.0, append=False, adjust_baseflow=1.0
+            )
+        return u_n.copy(), p_n.copy(), u_n, u_nn, p_n
 
     def _project_ic_velocity(self, u_nodes: np.ndarray, bcset: BCSet) -> np.ndarray:
         """Constrained L2 projection of the IC velocity with the perturbation
@@ -448,6 +510,80 @@ class FlowSolver(ABC):
             else np.zeros(self.space.n_pressure_dofs)
         )
         return np.concatenate([u.reshape(-1), p])
+
+    # ── Restart (ref: flowsolver.py:551-663) ─────────────────────────────────
+
+    def _find_restart_source(self, Tstart: float):
+        result = self._find_restart_from_json(Tstart)
+        if result is not None:
+            return result
+        return self._find_restart_from_params(Tstart)
+
+    def _find_restart_from_json(self, Tstart: float):
+        """The first sidecar in ``path_out`` whose checkpoints cover
+        ``Tstart``: (meta, counter, directory), or None."""
+        path_out = self.params_save.path_out
+        for json_path in sorted(path_out.glob("meta_restart*.json")):
+            meta = json.loads(json_path.read_text())
+            T0 = meta["Tstart"]
+            step = meta["dt"] * meta["save_every"]
+            n = meta["checkpoints_written"]
+            if n == 0:
+                continue
+            Tend = T0 + step * n
+            if T0 - 1e-10 <= Tstart <= Tend + 1e-10:
+                counter = round((Tstart - T0) / step)
+                logger.info(f"Restart: found JSON sidecar {json_path.name}, counter={counter}")
+                return meta, counter, path_out
+        return None
+
+    def _find_restart_from_params(self, Tstart: float):
+        """The legacy source: file names from ``ParamRestart.Trestartfrom``,
+        the counter from its old dt and save_every."""
+        if self.params_restart is None:
+            raise FileNotFoundError(
+                f"No JSON metadata sidecar found covering Tstart={Tstart} in "
+                f"{self.params_save.path_out}, and no ParamRestart was provided."
+            )
+        pr = self.params_restart
+        step = pr.dt_old * pr.save_every_old
+        counter = round((Tstart - pr.Trestartfrom) / step)
+        meta = {
+            "restart_order": pr.restart_order,
+            "files": {
+                "U": self.paths.U.name,
+                "Uprev": self.paths.Uprev.name,
+                "P": self.paths.P.name,
+            },
+        }
+        logger.info(f"Restart: using legacy ParamRestart, counter={counter}")
+        return meta, counter, self.params_save.path_out
+
+    def _initialize_at_time(self, Tstart: float):
+        """The state at ``Tstart`` from a checkpoint (full fields, the base
+        flow subtracted); the files the sidecar names may be the JAX
+        package's ``.h5`` (read through h5py) or the port's ``.ckpt``."""
+        meta, counter, base_dir = self._find_restart_source(Tstart)
+        self.order = meta["restart_order"]
+        self.iter = 0
+        self.t = Tstart
+
+        U_full = read_field_snapshot(base_dir / meta["files"]["U"], "U", counter)
+        Unn_full = read_field_snapshot(base_dir / meta["files"]["Uprev"], "U_n", counter)
+        P_full = read_field_snapshot(base_dir / meta["files"]["P"], "P", counter)
+
+        if self.params_save.save_every:
+            self.exporter.export_snapshots(
+                U_full, Unn_full, P_full, time=Tstart, append=False,
+                adjust_baseflow=0.0,
+            )
+        u_ = np.asarray(U_full) - self.fields.U0
+        u_n = u_.copy()
+        u_nn = np.asarray(Unn_full) - self.fields.U0
+        p_ = np.asarray(P_full) - self.fields.P0
+        p_n = p_.copy()
+        self.fields.ic = FlowField(np.concatenate([u_.reshape(-1), p_]), self.space)
+        return u_, p_, u_n, u_nn, p_n
 
     # ── Stepper construction (ref: _prepare_systems, flowsolver.py:665-701) ──
 
@@ -476,6 +612,8 @@ class FlowSolver(ABC):
             raise RuntimeError(
                 "compute_steady_state or load_steady_state must run before stepping"
             )
+        scheme = self.params_solver.time_scheme
+        start_order = self.order if self.order in (2, "cn") else 1
         self._stepper = Stepper(
             space=self.space,
             forms=self.forms,
@@ -485,10 +623,11 @@ class FlowSolver(ABC):
                 self.params_control.sensor_list, self.space.n_dofs
             ),
             force_cols=self._force_cols,
-            scheme=self.params_solver.time_scheme,
+            scheme=scheme,
             backend=self._resolve_backend(),
             dtype=self._resolve_dtype(),
             device=self.device,
+            start_order=start_order if scheme != "cn" else "cn",
             **self.params_solver.stepper_options,
         )
         up_n = np.concatenate([self.fields.u_n.reshape(-1), self.fields.p_n])
@@ -553,6 +692,18 @@ class FlowSolver(ABC):
         self.exporter.log(
             u_ctrl=u_ctrl, y_meas=self.y_meas, dE=dE, t=self.t, runtime=runtime
         )
+        if self._niter_multiple_of(self.iter, self.params_save.save_every):
+            # the checkpoint: snapshots, the sidecar that points at them,
+            # the timeseries so far and the Paraview indexes
+            self.exporter.export_snapshots(
+                self.fields.u_n, self.fields.u_nn, self.fields.p_n,
+                time=self.t, adjust_baseflow=1.0,
+            )
+            self.exporter.write_metadata(
+                restart_order="cn" if self.params_solver.time_scheme == "cn" else 2
+            )
+            self.exporter.write_timeseries()
+            self.exporter.write_paraview_index()
         return self.y_meas
 
     def write_timeseries(self) -> None:

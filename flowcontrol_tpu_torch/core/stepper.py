@@ -25,7 +25,8 @@ CUDA graphs (``core/graphs.py``) over a static carry; on the CPU the same
 bodies run eagerly. The step counter is a host integer, so the BDF1→BDF2
 ramp is a host branch over the two coefficient sets rather than the
 reference's where-selected arrays — the same arithmetic — and the first
-step of a run stays eager.
+step of a run stays eager. A restart (``start_order=2``) builds the BDF2
+system alone and takes BDF2 from its first step.
 
 Not transcribed, because they exist for the TPU: the banded mass apply
 (``ops/banded.py``; gathers are slow on a TPU, a CSR SpMV is not slow on a
@@ -176,6 +177,10 @@ class Stepper:
     force_cols: np.ndarray  # (n_act, n) body-force load vectors
     scheme: str = "bdf"  # 'bdf' or 'cn'
     backend: str = "dense_lu"  # 'dense_lu' | 'host_lu'
+    #: the first step's order: 1 (BDF1, then BDF2), or 2 (a restart from a
+    #: checkpoint pair: BDF2 from the first step, its system alone built;
+    #: ref: restart_order=2, flowsolver.py:795-796); 'cn' under scheme='cn'
+    start_order: Any = 1
     dtype: torch.dtype = torch.float64
     device: Any = "cuda"  # the CPU only when asked for
     #: take the multifrontal solve even where the dense LU fits (the dense
@@ -215,6 +220,8 @@ class Stepper:
             raise ValueError(
                 f"host_lu is the CPU validation backend; on {dev_t} use dense_lu"
             )
+        if self.start_order not in (1, 2, "cn"):
+            raise ValueError(f"start_order must be 1, 2 or 'cn', got {self.start_order!r}")
         if self.trisolve not in ("torch", "cuda"):
             raise ValueError(f"trisolve must be 'torch' or 'cuda', got {self.trisolve!r}")
         if dev_t.type == "cuda" and forms.is_nonlinear and dt != torch.float32:
@@ -229,8 +236,14 @@ class Stepper:
         self.n_act = self.force_cols.shape[0]
         self.ns = self.c_rows.shape[0]
 
-        # BDF1 on the first step then BDF2 (ref: flowsolver.py:740-743), or CN
-        orders = ("cn",) if self.scheme == "cn" else (1, 2)
+        # BDF1 on the first step then BDF2 (ref: flowsolver.py:740-743), BDF2
+        # alone from a restart, or CN
+        if self.scheme == "cn":
+            orders = ("cn",)
+        elif self.start_order == 2:
+            orders = (2,)
+        else:
+            orders = (1, 2)
         self._order_idx = {o: i for i, o in enumerate(orders)}
 
         def tensor(a):
@@ -404,7 +417,7 @@ class Stepper:
     def _order_of(self, it: int):
         if self.scheme == "cn":
             return "cn"
-        return 1 if it == 0 else 2
+        return 1 if it == 0 and self.start_order != 2 else 2
 
     def _control(self, u_ctrl) -> torch.Tensor:
         u_ctrl = self._tensor(u_ctrl)
@@ -525,7 +538,8 @@ class Stepper:
         :meth:`step`. On CUDA the steady-state order (BDF2, or CN) runs as
         a CUDA graph, captured once per batch shape and control shape over
         a static carry; the first step (``carry.it == 0``: BDF1 with its
-        own factor, or the borrowed BDF1 step) runs eagerly, once per run.
+        own factor, the borrowed BDF1 step, or a restart's BDF2 step) runs
+        eagerly, once per run.
         A call copies the carry in (skipped when it is the carry the
         previous call returned, which the static carry still holds: the
         caller treats returned carries as values and does not write into

@@ -9,9 +9,10 @@ domain/mesh): the cylinder's Re=100 unstable eigenvalue 0.132643 +
 0.770015j (ref :50-51); the JAX package gives 0.13292 + 0.77003j on its
 default generated mesh (``--full-mesh``, 56,383 dofs). The host ARPACK
 shift-invert is printed beside ``eig_arnoldi_dense_device`` on
-``--device`` (a dense complex64 LU of A - σE). The modes' export
-(``export_complex_field``) writes the mesh I/O's HDF5 checkpoint file and
-waits for that slice of the port.
+``--device`` (a dense complex64 LU of A - σE). The two leading host modes
+are written by ``export_complex_field`` to
+``data_output_eig/modes.ckpt`` (re/im/abs/arg of u and p, their
+frequencies as the snapshot times).
 """
 
 import argparse
@@ -20,6 +21,7 @@ from pathlib import Path
 from flowcontrol_tpu_torch.core.operatorgetter import OperatorGetter
 from flowcontrol_tpu_torch.examples.compute_operators import COARSE
 from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
+from flowcontrol_tpu_torch.utils.io import export_complex_field
 from flowcontrol_tpu_torch.utils.linalg import eig_arnoldi_dense_device, get_mat_vp_shift_invert
 
 SIGMA = 0.1 + 0.8j
@@ -37,12 +39,13 @@ def main(device: str = "cuda", full_mesh: bool = False):
     og = OperatorGetter(fs)
     a = og.get_A(autodiff=False)
     e = og.get_mass_matrix()
-    vals, _ = get_mat_vp_shift_invert(a, e, n=8, sigma=SIGMA)
+    vals, vecs = get_mat_vp_shift_invert(a, e, n=8, sigma=SIGMA)
     vals_dev, _ = eig_arnoldi_dense_device(a, e, n=8, sigma=SIGMA, device=device)
     print(f"leading eigenvalues (host ARPACK | eig_arnoldi_dense_device on {fs.device}):")
     for v, w in zip(vals, vals_dev):
         print(f"  {v.real:+.6f} {v.imag:+.6f}j | {w.real:+.6f} {w.imag:+.6f}j")
-    print("the modes' export (export_complex_field) waits for the port's mesh I/O")
+    export_complex_field(fs.params_save.path_out / "modes.ckpt", fs.space, vecs.T[:2],
+                         name="mode", frequencies=vals.imag[:2])
     return vals, vals_dev
 
 

@@ -9,7 +9,8 @@ src/examples/lidcavity/run_lidcavity_example.py): the default mesh
 where its mesh checksum matches (else the Newton continuation of
 ``models/make_baseflow.py`` on the host: the reference's Picard-only recipe
 stalls this close to the Hopf), then unactuated steps with the point
-sensors logging.
+sensors logging and a checkpoint every 20 steps (snapshots, the JSON
+sidecar, the timeseries CSV and the Paraview indexes).
 """
 
 import argparse
@@ -28,7 +29,7 @@ log = logging.getLogger("lidcavity")
 
 def main(num_steps: int = 100, device: str = "cuda"):
     fs = LidCavityFlowSolver.make_default(
-        Re=8000, num_steps=num_steps, verbose=10, device=device,
+        Re=8000, num_steps=num_steps, save_every=20, verbose=10, device=device,
         path_out=Path.cwd() / "data_output_lidcavity",
     )
     path = committed_baseflow(fs)

@@ -7,7 +7,7 @@ split, Gaussian volume-force actuator upstream of the cavity, wall-shear +
 point sensors, and the channel/cavity-split steady-state initial guess.
 Transcribed from ``flowcontrol_tpu/models/cavity.py``; ``make_default``
 takes ``device=`` (e.g. ``'cuda'``) and the other ParamSolver fields as
-keywords.
+keywords, and a mesh file as ``meshpath=`` (an ``.xdmf``, ``mesh/io.py``).
 
 At the default mesh (26,440 cells, 120,068 mixed dofs) the dense LU's f64
 factorization does not fit an 80 GB card, so on CUDA the Stepper takes the
@@ -30,6 +30,7 @@ from flowcontrol_tpu_torch.core.sensor import (
     SensorHorizontalWallShear,
     SensorPoint,
 )
+from flowcontrol_tpu_torch.mesh.io import read_xdmf_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -109,6 +110,7 @@ class CavityFlowSolver(FlowSolver):
         save_every: int = 0,
         Tstart: float = 0.0,
         verbose: int = 0,
+        meshpath=None,
         mesh=None,
         mesh_kwargs: dict | None = None,
         **solver_kwargs,
@@ -125,10 +127,12 @@ class CavityFlowSolver(FlowSolver):
                **solver_kwargs}
         )
         if mesh is None:
-            mesh = default_cavity_mesh(**(mesh_kwargs or {}))
-        params_mesh = fsp.ParamMesh(mesh=mesh)
+            mesh = (read_xdmf_mesh(meshpath) if meshpath is not None
+                    else default_cavity_mesh(**(mesh_kwargs or {})))
+        params_mesh = fsp.ParamMesh(meshpath=meshpath, mesh=mesh)
         # x0ns_* split the lower wall into slip and no-slip segments; the
-        # domain extents come from the actual mesh
+        # domain extents come from the actual mesh (read from ``meshpath``
+        # where one is given)
         params_mesh.user_data.update(
             {
                 "xinf": float(mesh.coords[:, 0].max()),

@@ -8,7 +8,7 @@ same make_default configuration (Re=100, dt=0.005, 2 parabolic BC
 actuators of 10° angular size, 3 V-velocity point sensors in the wake).
 Transcribed from ``flowcontrol_tpu/models/cylinder.py``; ``make_default``
 takes ``device=`` (e.g. ``'cuda'``) and the other ParamSolver fields as
-keywords.
+keywords, and a mesh file as ``meshpath=`` (an ``.xdmf``, ``mesh/io.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from flowcontrol_tpu_torch.core.flowfield import BoundaryConditions
 from flowcontrol_tpu_torch.core.flowsolver import FlowSolver
 from flowcontrol_tpu_torch.core.sensor import SENSOR_TYPE, SensorPoint
 from flowcontrol_tpu_torch.fem.facets import boundary_force_rows
+from flowcontrol_tpu_torch.mesh.io import read_xdmf_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -123,6 +124,7 @@ class CylinderFlowSolver(FlowSolver):
         save_every: int = 0,
         Tstart: float = 0.0,
         verbose: int = 0,
+        meshpath=None,
         mesh=None,
         mesh_kwargs: dict | None = None,
         **solver_kwargs,
@@ -139,10 +141,12 @@ class CylinderFlowSolver(FlowSolver):
                **solver_kwargs}
         )
         if mesh is None:
-            mesh = default_cylinder_mesh(**(mesh_kwargs or {}))
-        params_mesh = fsp.ParamMesh(mesh=mesh)
-        # domain extents from the actual mesh (robust to custom coarse
-        # meshes; the reference hardcodes the stock O1 domain)
+            mesh = (read_xdmf_mesh(meshpath) if meshpath is not None
+                    else default_cylinder_mesh(**(mesh_kwargs or {})))
+        params_mesh = fsp.ParamMesh(meshpath=meshpath, mesh=mesh)
+        # domain extents from the actual mesh, read from ``meshpath`` where
+        # one is given (robust to custom coarse meshes; the reference
+        # hardcodes the stock O1 domain)
         params_mesh.user_data.update(
             {
                 "xinf": float(mesh.coords[:, 0].max()),

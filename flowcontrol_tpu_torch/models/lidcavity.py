@@ -5,7 +5,8 @@ Behavioral port of the reference LidCavityFlowSolver
 lid (uniform u), no-slip walls, zero steady-state initial guess, full-field
 BC override putting the lid at uinf. Transcribed from
 ``flowcontrol_tpu/models/lidcavity.py``; ``make_default`` takes ``device=``
-(e.g. ``'cuda'``) and the other ParamSolver fields as keywords.
+(e.g. ``'cuda'``) and the other ParamSolver fields as keywords, and a mesh
+file as ``meshpath=`` (an ``.xdmf``, ``mesh/io.py``).
 
 The flow is enclosed: every boundary velocity dof is constrained, so the
 pressure is defined up to a constant and ``FlowSolver`` pins its first dof.
@@ -78,6 +79,7 @@ class LidCavityFlowSolver(FlowSolver):
         save_every: int = 0,
         Tstart: float = 0.0,
         verbose: int = 0,
+        meshpath=None,
         mesh=None,
         n_mesh: int = 64,
         **solver_kwargs,
@@ -93,11 +95,11 @@ class LidCavityFlowSolver(FlowSolver):
             **{**dict(throw_error=True, is_eq_nonlinear=True, shift=0.0),
                **solver_kwargs}
         )
-        if mesh is None:
+        if mesh is None and meshpath is None:
             from flowcontrol_tpu_torch.mesh.generation import lidcavity_mesh
 
             mesh = lidcavity_mesh(n_mesh)
-        params_mesh = fsp.ParamMesh(mesh=mesh)
+        params_mesh = fsp.ParamMesh(meshpath=meshpath, mesh=mesh)
         params_mesh.user_data.update({"yup": 1, "ylo": 0, "xri": 1, "xle": 0})
         params_control = fsp.ParamControl(
             sensor_list=[

@@ -9,9 +9,10 @@ branch selection. Transcribed from ``flowcontrol_tpu/models/pinball.py``;
 ``make_default`` takes ``device=`` (e.g. ``'cuda'``) and the other
 ParamSolver fields as keywords.
 
-The JAX package caches its generated mesh as XDMF; the port has no mesh
-files yet (ROADMAP.md) and generates the mesh in memory on every
-``make_default`` (the default: 14,748 cells, 67,920 mixed dofs). The LQG
+The JAX package caches its generated mesh as XDMF; the port generates the
+mesh in memory on every ``make_default`` (the default: 14,748 cells, 67,920
+mixed dofs) unless given ``mesh=`` or ``meshpath=`` (an ``.xdmf`` file,
+``mesh/io.py``). The LQG
 compensator of the MIMO closed loop, ``_controllers/pinball_lqg_re100.mat``
 (22 states, 3 sensors, 3 rotation actuators, discrete at dt = 0.005), is
 the JAX package's file.
@@ -34,6 +35,7 @@ from flowcontrol_tpu_torch.core.flowfield import BoundaryConditions
 from flowcontrol_tpu_torch.core.flowsolver import FlowSolver
 from flowcontrol_tpu_torch.core.sensor import SENSOR_TYPE, SensorPoint
 from flowcontrol_tpu_torch.fem.facets import boundary_force_rows
+from flowcontrol_tpu_torch.mesh.io import read_xdmf_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -182,6 +184,7 @@ class PinballFlowSolver(FlowSolver):
         save_every: int = 0,
         Tstart: float = 0.0,
         verbose: int = 0,
+        meshpath=None,
         mesh=None,
         mesh_kwargs: dict | None = None,
         **solver_kwargs,
@@ -201,8 +204,9 @@ class PinballFlowSolver(FlowSolver):
                **solver_kwargs}
         )
         if mesh is None:
-            mesh = default_pinball_mesh(**(mesh_kwargs or {}))
-        params_mesh = fsp.ParamMesh(mesh=mesh)
+            mesh = (read_xdmf_mesh(meshpath) if meshpath is not None
+                    else default_pinball_mesh(**(mesh_kwargs or {})))
+        params_mesh = fsp.ParamMesh(meshpath=meshpath, mesh=mesh)
         params_mesh.user_data.update(
             {
                 "xinf": float(mesh.coords[:, 0].max()),

@@ -15,9 +15,8 @@ callers that want one numpy helper.
 
 Against the JAX package's aggregator: ``get_frequency_response_tpu`` is
 here under the port's name, ``get_frequency_response_device``, beside
-``eig_arnoldi_dense_device``; ``export_complex_field`` and
-``get_frequency_response_mpi`` are not ported yet (ROADMAP.md: snapshots
-and mesh I/O; multi-GPU).
+``eig_arnoldi_dense_device``; ``get_frequency_response_mpi`` is not ported
+yet (ROADMAP.md: multi-GPU).
 """
 
 from __future__ import annotations
@@ -26,9 +25,9 @@ import importlib
 
 _NAMES = {
     "fem": ("apply_fun", "get_subspace_dofs", "print0", "projectm", "summarize_timings"),
-    "io": ("export_boundary_field", "export_dof_map", "export_field_vtk",
-           "export_npz_to_mat", "export_sparse_matrix", "export_square_operators",
-           "load_Hw", "plot_Hw", "save_Hw"),
+    "io": ("export_boundary_field", "export_complex_field", "export_dof_map",
+           "export_field_vtk", "export_npz_to_mat", "export_sparse_matrix",
+           "export_square_operators", "load_Hw", "plot_Hw", "save_Hw"),
     "linalg": ("dense_to_sparse", "eig_arnoldi_dense_device", "eigenproblem_slepc",
                "get_field_response", "get_frequency_response",
                "get_frequency_response_device", "get_frequency_response_parallel",

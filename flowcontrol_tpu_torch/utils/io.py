@@ -1,12 +1,11 @@
 """Export helpers: frequency responses, operators, fields, Bode plots.
 
 Transcribed from ``flowcontrol_tpu/utils/io.py`` (ref: src/utils/io.py),
-host numpy/scipy: operator export (npz + COO + spy plot), DOF-map export,
-H(w) save/plot (.mat + Bode PNGs per I/O pair), legacy-VTK fields, boundary
-forces and the stress tensor. matplotlib is imported inside the plotting
-functions only. The complex-field export of eigenmodes and frequency
-responses (``export_complex_field``) writes the mesh I/O's HDF5 checkpoint
-file and waits for that slice.
+host numpy/scipy: the complex-field export of eigenmodes and frequency
+responses (into the port's ``.ckpt`` snapshot directory, ``mesh/io.py``),
+operator export (npz + COO + spy plot), DOF-map export, H(w) save/plot
+(.mat + Bode PNGs per I/O pair), legacy-VTK fields, boundary forces and the
+stress tensor. matplotlib is imported inside the plotting functions only.
 """
 
 from __future__ import annotations
@@ -19,7 +18,31 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
 from flowcontrol_tpu_torch.fem.facets import boundary_force_rows
+from flowcontrol_tpu_torch.mesh.io import FieldCheckpointFile
 from flowcontrol_tpu_torch.utils.physics import stress_tensor_field
+
+
+def export_complex_field(path, space, field: np.ndarray, name: str = "mode",
+                         frequencies=None) -> None:
+    """Write re/im/abs/arg of complex mixed fields, split into velocity and
+    pressure, with frequency as the snapshot axis, into a ``.ckpt``
+    snapshot directory (``path`` with that suffix; ref: io.py:61-158 —
+    Paraview reads frequency as time)."""
+    field = np.atleast_2d(np.asarray(field, dtype=np.complex128))
+    if field.shape[1] != space.n_dofs:
+        field = field.T
+    frequencies = (
+        np.arange(field.shape[0]) if frequencies is None else np.asarray(frequencies)
+    )
+    with FieldCheckpointFile(path, "w") as f:
+        for k, (w, fld) in enumerate(zip(frequencies, field)):
+            u = fld[: space.n_vel_dofs].reshape(space.n_vnodes, 2)
+            p = fld[space.n_vel_dofs:]
+            for part, fn in [
+                ("re", np.real), ("im", np.imag), ("abs", np.abs), ("arg", np.angle),
+            ]:
+                f.write(f"{name}_u_{part}", fn(u), float(w), counter=k)
+                f.write(f"{name}_p_{part}", fn(p), float(w), counter=k)
 
 
 def export_square_operators(path_prefix, operators: dict, spy_png: bool = True) -> None:

@@ -92,7 +92,12 @@ package, so it also runs on a GPU machine without them:
   to the eager call; a body that cannot be captured raises. The f32 pin
   runs through ``compiled_step``'s graph. The pinball's MIMO closed loop
   with the committed 22-state 3 x 3 LQG (u = +K(y)), 6 graphed steps at
-  B = 2 (F) and B = 64 (K2, P1), bitwise equal to the eager loop.
+  B = 2 (F) and B = 64 (K2, P1), bitwise equal to the eager loop. A
+  restarted cylinder (``start_order=2``, from a sidecar) on the
+  multifrontal path: one system, and ``compiled_step`` and
+  ``make_rollout_closed_loop`` from the restart carry bitwise equal to the
+  eager step, every step launching K1 once and F twice (no borrowed
+  sweep).
 - The controller search (``examples/synthesize_controller.py``
   ``lqg_population_cost``, ``utils/optim_algs.py``): the coarse cylinder's
   B = 256 closed-loop graph run with one set of controllers, then replayed
@@ -1038,6 +1043,85 @@ def test_torch_cuda_graph_rollout_matches_eager(cuda, pin_base_flows, name, path
     verdicts |= {_same(getattr(carry, f), getattr(c, f), path) for f in CARRY_FIELDS}
     assert carry.it == c.it == 20
     print(f"graph rollout ({loop}) {name} {path} B={batch}: {sorted(verdicts)}")
+
+
+def _launches_per_step(run, steps):
+    """Runs ``run()`` and returns the K1 and F launches it made, divided by
+    ``steps``."""
+    before = (nonlinear_convection.launches, mf_fused.multifrontal_solve_fused.launches)
+    out = run()
+    return out, ((nonlinear_convection.launches - before[0]) / steps,
+                 (mf_fused.multifrontal_solve_fused.launches - before[1]) / steps)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_restart_graph_matches_eager(cuda, pin_base_flows, tmp_path, monkeypatch):
+    """A restarted cylinder (start_order=2: a 2-step run with a checkpoint
+    every step, then a solver restarted from its sidecar after step 1) on
+    the multifrontal path, with the two-factor size lowered so that the run
+    from rest borrows its first step: the restart builds one system and no
+    borrowed operator. From the restart carry (it = 0), compiled_step and
+    make_rollout_closed_loop against the eager Stepper.step: y, dE, u, x
+    and every carry field bitwise equal, and every step, eager, warm-up or
+    replayed, launches K1 once and F twice (the solve and its refinement
+    sweep): no borrowed sweep."""
+    monkeypatch.setattr(Stepper, "DENSE_TWO_FACTOR_MAX_N", 1000)
+    mesh, u0, p0 = pin_base_flows["cylinder"]
+    opts = dict(Re=100, mesh=mesh, path_out=tmp_path, device="cuda",
+                stepper_options=PATHS["multifrontal"])
+    fs = CylinderFlowSolver.make_default(num_steps=2, save_every=1, **opts)
+    fs._assign_steady_state(u0, p0)
+    fs.initialize_time_stepping()
+    for _ in range(2):
+        fs.step(np.array([0.3, -0.2]))
+    assert fs.stepper._solver_kinds == ["borrowed", "multifrontal"]
+    dt = fs.params_time.dt
+    fs2 = CylinderFlowSolver.make_default(num_steps=GRAPH_STEPS, Tstart=dt, **opts)
+    fs2._assign_steady_state(u0, p0)
+    fs2.initialize_time_stepping(Tstart=dt)
+    st = fs2.stepper
+    assert fs2.order == 2 and st._solver_kinds == ["multifrontal"] and not st._dev["a_bc"]
+    carry0 = fs2._carry
+    us = 0.1 * np.random.default_rng(0).standard_normal((GRAPH_STEPS, st.n_act))
+    eager, c = [], carry0
+    for u in us:
+        (c, out), per = _launches_per_step(lambda: st.step(c, u), 1)
+        assert per == (1, 2)
+        eager.append((c, out))
+    step, c = st.compiled_step(), carry0
+    for k, u in enumerate(us):
+        (c, out), per = _launches_per_step(lambda: step(c, u), 1)
+        assert per == (1, 2), k
+        ce, oe = eager[k]
+        for got, want in [(out.y, oe.y), (out.dE, oe.dE), (out.x, oe.x),
+                          *((getattr(c, f), getattr(ce, f)) for f in CARRY_FIELDS)]:
+            assert torch.equal(got, want), k
+    ad, bd, cd, dd = _mats(st, 1, cuda)
+    y0 = carry0.u_n @ st._dev["c"].T
+    xk, y, ys, uu, c = torch.zeros(ad.shape[:-1], dtype=st.dtype, device=cuda), y0, [], [], carry0
+
+    def mv(a, v):
+        return torch.einsum("...ij,...j->...i", a, v)
+
+    for _ in range(GRAPH_STEPS):
+        fb = -y
+        u = mv(cd, xk) + mv(dd, fb)
+        xk = mv(ad, xk) + mv(bd, fb)
+        c, out = st.step(c, u)
+        y = out.y
+        ys.append(y)
+        uu.append(u)
+    roll = st.make_rollout_closed_loop(GRAPH_STEPS)
+    for _ in range(2):  # the first rollout captures, the second replays
+        (carry, (ys_g, _, us_g, _)), per = _launches_per_step(
+            lambda: roll(carry0, (ad, bd, cd, dd), y0), GRAPH_STEPS)
+        assert per == (1, 2)
+        assert torch.equal(ys_g, torch.stack(ys)) and torch.equal(us_g, torch.stack(uu))
+        for f in CARRY_FIELDS:
+            assert torch.equal(getattr(carry, f), getattr(c, f)), f
+    # the step: steps 3.. replayed; the rollouts: their second and later
+    # steps, less the first rollout's capture
+    assert [p.replays for p in st._programs.values()] == [GRAPH_STEPS - 2, 2 * GRAPH_STEPS - 3]
 
 
 @pytest.mark.cuda

@@ -101,12 +101,6 @@ def test_torch_cylinder_timeseries_csv(runs, tmp_path):
     assert lines[1].split(",")[-2:] == ["", ""]  # the IC row has no control
 
 
-def test_torch_cylinder_refuses_unported_io(tmp_path):
-    mesh = cylinder_mesh_t(**COARSE)
-    with pytest.raises(NotImplementedError):
-        CylT.make_default(mesh=mesh, path_out=tmp_path, save_every=5)
-
-
 @pytest.mark.parametrize("backend, precision, error", [
     ("host_lu", "auto", ValueError),  # the CPU validation backend
     ("dense_lu", "f64", TypeError),  # K1 takes float32 only

@@ -258,7 +258,38 @@ fails or no CUDA device is present:
     the peak |y| of the continuous run's steps 21-40; the seconds of both
     Steppers' builds; one checkpoint's write and read ms and its bytes on
     disk; every Binary DataItem of the U and P indexes read at its
-    ``Seek`` equal to the vertex slice and the mesh.
+    ``Seek`` equal to the vertex slice and the mesh;
+41. the Krylov backends, with the factor cache off like every phase but 42,
+    on a card holding nothing else: ``make_default(Re=100)`` on ``cuda``
+    (an f32 step; its Krylov solve runs in f64) with
+    ``solver_backend="gmres"`` and phase 3's base flow, ``krylov_rtol``
+    KRYLOV_RTOL (1e-8) through ``stepper_options``; the
+    SIMPLE preconditioners' host builds and the Schur inverse's bytes; 20
+    ``fs.step`` calls with phase 3's controls, per step the cycles, Arnoldi
+    steps, ``res`` (``last_solve_res``, >= 0 on every step), the step's span
+    on the device timeline and the host's ms; exact launches (K1 once a step
+    and in ``init_carry``; one vector's products are cuSPARSE SpMVs); a
+    profile of one step; the floor (the next step's system solved for
+    KRYLOV_FLOOR_CYCLES cycles by the Stepper's f64 solve and by the same
+    GMRES and SIMPLE in f32, the residual after each: the f64 one reaches
+    ``krylov_rtol``, the f32 one is printed, not held); phase 4's
+    accuracy from the carry after step 10 (<= 5e-4); a B = 4
+    ``rollout_open_loop`` of 3 steps through S (controls ``linspace(0.5,
+    1.5, 4)``; exact launches: S's count follows from the cycles), member 0
+    within MEMBER_TOL of its single stream (the joint inner products);
+    BiCGStab for 3 steps, finite, ``res`` printed;
+42. the factor cache on phase 40's restart, in a new directory removed at
+    the end: the restarted Stepper built cold (``loaded_from`` 'build', then
+    ``flush``), again ('stream': the derived entry read stage by stage
+    through pinned staging buffers), and with the derived entry removed
+    ('primary'); each one's set-up split, the entries' bytes on disk, the
+    streamed load's GB/s against the same files read alone; F's solve of one
+    right-hand side and ``solve_err`` bitwise equal across the three; phase
+    40's 20 restarted steps rerun on the streamed factor, y bitwise equal
+    (exact launches); then one factor with ``inbox='full'``,
+    ``FC_MF_PACK=bucket`` and ``trim=False``: F at rows 1 and 8 and the
+    per-stage sweep (K2, P1) at B = 64 against F's plain version (<= 1e-5),
+    device ms per solve beside the default factor's.
 
 ``fs.step`` runs ``Stepper.compiled_step``: from the second step of a run
 a CUDA graph of the step, so phases 3, 6, 10 and 17 time and count the
@@ -291,12 +322,13 @@ exact. Phase 3 also holds the device mass to the assembly's nonzero
 count.
 
 The line before the last is a JSON object describing each kernel (K1 at
-batch 1, 256 and 64, and at batch 1 on the lid cavity's and the pinball's
+batch 1 (its launches: the dense path's and phase 41's), 256 and 64, and at batch 1 on the lid cavity's and the pinball's
 meshes; K2 at batch 1, 256 and 64, and at the pinball's 256; K3 at batch
 1 and at batch 256; P1 at batch 256 and 64, and at the pinball's 256; F
 at the cylinder's, the cavity's, the lid cavity's and the pinball's
-factor; P2, P3, P4;
-S's csr_matmul at batch 256, f32, with its f64 and cavity numbers beside
+factor (the cylinder's launches: phase 6's and phase 42's rerun); P2, P3,
+P4; S's csr_matmul at batch 256 (its launches: the batched paths' and
+phase 41's B = 4 Krylov steps), f32, with its f64 and cavity numbers beside
 them, and S's csr_residual at batch 256 with the cavity's beside):
 its launches on its main path (K1's and K2's batched rows: their launches
 on the paths of that width), its largest error
@@ -315,6 +347,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2404,12 +2437,13 @@ RESTART_SAVE = 20  # a checkpoint every RESTART_SAVE steps; the restart at the f
 RESTART_TOL = 1e-5  # restarted y against the continuous run's tail, relative to its peak
 
 
-def restart_phase(u0: np.ndarray, p0: np.ndarray, counters, card: str) -> None:
+def restart_phase(u0: np.ndarray, p0: np.ndarray, counters, card: str) -> dict:
     """Phase 40: the default cylinder's mesh written and read back, phase 3's
     base flow through the steady-state files, a closed loop of RESTART_STEPS
     steps with a checkpoint every RESTART_SAVE, and a second solver
     restarted from the sidecar at BDF2 (multifrontal, K1 and F), in a
-    temporary directory, with h5py unimportable throughout."""
+    temporary directory, with h5py unimportable throughout; then phase 42
+    on that restart (:func:`cache_phase`, whose result it returns)."""
     import dataclasses
     import importlib.util
     import tempfile
@@ -2601,13 +2635,393 @@ def restart_phase(u0: np.ndarray, p0: np.ndarray, counters, card: str) -> None:
                 f"Binary DataItem read at its Seek equals the vertex slice, the mesh's "
                 f"coordinates and cells; the phase took {time.perf_counter() - t_phase:.1f} s "
                 f"({card})")
-            del fs, fs2, st2, mf2
+            del fs, st2, mf2
+            fs2._stepper = fs2._carry = fs2._step_compiled = None
+            free_card()
+            # ── phase 42: the factor cache on the restart's traffic ─────────
+            cached = cache_phase(opts, t_restart, k, kx, ys[RESTART_SAVE - 1], np.asarray(ys2),
+                                 counters, card)
+            del fs2
     finally:
         if saved is None:
             sys.modules.pop("h5py", None)
         else:
             sys.modules["h5py"] = saved
     free_card()
+    return cached
+
+
+KRYLOV_STEPS = 20  # phase 41's single stream: phase 3's controls
+#: phase 41's krylov_rtol (stepper_options): the JAX package's default,
+#: which the port's Krylov solve reaches (it runs in f64 inside the f32
+#: step); the same cycles in f32 diverge (the floor study)
+KRYLOV_RTOL = 1e-8
+KRYLOV_FLOOR_CYCLES = 2  # cycles of the floor study
+BICG_STEPS = 3
+KRYLOV_BATCH = 4
+KRYLOV_BATCH_STEPS = 3
+#: phase 41's stepper_options
+KRYLOV_OPTIONS = {"krylov_rtol": KRYLOV_RTOL}
+
+
+def krylov_products(st, cycles: int, steps: int) -> int:
+    """The sparse products (S's csr_matmul at a batch) of ``steps`` Krylov
+    steps that ran ``cycles`` cycles in all: per GMRES cycle the start's
+    M(b - A x) (A once, SIMPLE's M four times), each of gmres_iters restarts'
+    gmres_iters Arnoldi steps M(A v) and its closing residual, and the
+    cycle's measured residual (BiCGStab: b - A x0, then per iteration two M
+    and two A); per step the mass apply."""
+    it = st.gmres_iters
+    per_cycle = 5 + it * (5 * it + 5) if st.backend == "gmres" else 1 + 10 * it
+    return cycles * (per_cycle + 1) + steps
+
+
+def krylov_phase(u0: np.ndarray, p0: np.ndarray, host, counters, card: str) -> dict:
+    """Phase 41: the Krylov backends at the default cylinder's 56,383 dofs in
+    f32 on a card holding nothing else, from phase 3's host base flow.
+    Returns the phase's K1 and S launches (for the kernels line)."""
+    from flowcontrol_tpu_torch.core.stepper import carry_to_numpy
+    from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
+    from flowcontrol_tpu_torch.solvers.krylov import gmres
+
+    t_phase = time.perf_counter()
+    total = [0] * len(counters)
+
+    def take():
+        got = [c.launches for c in counters]
+        for i, g in enumerate(got):
+            total[i] += g
+        for c in counters:
+            c.launches = 0
+        return got
+
+    def solver(backend, steps):
+        fs = CylinderFlowSolver.make_default(
+            Re=RE, num_steps=steps, device="cuda", solver_backend=backend,
+            stepper_options=dict(KRYLOV_OPTIONS))
+        fs._assign_steady_state(u0, p0)
+        fs.initialize_time_stepping()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        st = fs.stepper  # the systems, the SIMPLE preconditioners, init_carry
+        torch.cuda.synchronize()
+        return fs, st, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    fs, st, t_setup = solver("gmres", KRYLOV_STEPS)
+    pcs = [pc for _, pc in st._solvers]
+    log(f"phase 41: GMRES at {fs.space.n_dofs} dofs, a {st.dtype} step on {st.device} (its "
+        f"Krylov solve in f64), solve kinds {st._solver_kinds}; krylov_rtol "
+        f"{st.krylov_rtol:g} (stepper_options), gmres_iters {st.gmres_iters} (a cycle: up to "
+        f"{st.gmres_iters} restarts of {st.gmres_iters} Arnoldi steps), at most "
+        f"{st.krylov_max_cycles} cycles; Stepper built in {t_setup:.2f} s, of it the SIMPLE "
+        f"preconditioners' host builds (BDF1, BDF2) "
+        f"{', '.join(f'{pc.build_seconds:.2f}' for pc in pcs)} s; Schur inverse "
+        f"{tuple(pcs[-1].s_inv.shape)} {pcs[-1].s_inv.dtype}, {pcs[-1].s_inv.nbytes / 1e6:.1f} MB "
+        f"per order; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    # the single stream: events around each step (its span on the device's
+    # timeline: each cycle waits on the host for its residual, so the span
+    # holds the card's idle gaps too), the host's wall time
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ys, steps, carry10, cyc0 = [], [], None, st.krylov_cycles
+    t_run = time.perf_counter()
+    for i in range(KRYLOV_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        ys.append(fs.step(controls(i)))
+        end.record()
+        torch.cuda.synchronize()
+        steps.append((st.last_krylov_cycles, fs.last_solve_res, start.elapsed_time(end),
+                      (time.perf_counter() - t0) * 1e3))
+        if i + 1 == CTRL_STEPS:
+            carry10 = carry_to_numpy(fs._carry)
+    t_run = time.perf_counter() - t_run
+    launches = take()
+    cycles = st.krylov_cycles - cyc0
+    ys = np.asarray(ys)
+    want = [KRYLOV_STEPS + 1, 0, 0, 0, 0, 0, 0]
+    log(f"phase 41: {KRYLOV_STEPS} fs.step calls (u = [0.3, -0.2] for {CTRL_STEPS}, then 0) in "
+        f"{t_run:.2f} s ({KRYLOV_STEPS / t_run:.2f} steps/s; {card}); per step (cycles, Arnoldi "
+        f"steps, res, device-timeline span ms, host ms): "
+        + "; ".join(f"{c}, {c * st.gmres_iters ** 2}, {r:.3e}, {s:.1f}, {w:.1f}"
+                    for c, r, s, w in steps))
+    log(f"phase 41: y[-1] = {ys[-1].tolist()}; launches K1/K2/P1/K3/F/S/R {launches} (expected "
+        f"{want}: K1 once a step and in init_carry; one vector's products are cuSPARSE SpMVs)")
+    if not (np.isfinite(ys).all() and all(r >= 0.0 for _, r, _, _ in steps)):
+        raise AssertionError("phase 41: y not finite or a residual not measured")
+    if launches != want:
+        raise AssertionError(f"phase 41: single-stream launches {launches}, expected {want}")
+    # where a Krylov step's time goes: one step under torch.profiler,
+    # device activity alone (a GMRES step makes ~80,000 launches, whose host
+    # records would take longer to gather than the step)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fs.step(np.zeros(st.n_act))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kinds = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA")), reverse=True)
+    busy = sum(k[0] for k in kinds)
+    log(f"phase 41: one GMRES step ({st.last_krylov_cycles} cycle(s)) profiled: {wall:.1f} ms "
+        f"wall, device busy {busy:.1f} ms ({busy / wall:.3f}), {sum(k[1] for k in kinds)} "
+        f"launches; by kind (ms, launches): "
+        + "; ".join(f"{name[:60]} {ms:.1f}, {n}" for ms, n, name in kinds[:6]))
+    take()
+    # the floor: from the state after the steps, the next step's system
+    # (zero control) solved cycle after cycle, each cycle's relative
+    # residual (in f64), by the Stepper's f64 solve and by the same GMRES
+    # and SIMPLE in f32 (the JAX package's arithmetic on the card)
+    from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
+    from flowcontrol_tpu_torch.core.stepper import csr_to_device
+    from flowcontrol_tpu_torch.solvers.krylov import CsrOperator, build_simple_preconditioner
+
+    a_bc, _ = fs._bcset_perturbation().eliminate_csr(to_scipy_csr(
+        fs.forms.transient_lhs(2, fs.fields.U0), fs.space.cell_dofs, fs.space.n_dofs))
+    op64, pc64 = st._solvers[st._order_idx[2]]
+    op32 = CsrOperator(csr_to_device(a_bc, st.device, torch.float32))
+    pc32 = build_simple_preconditioner(a_bc, None, fs.space.n_vel_dofs, op32, st.device,
+                                       torch.float32)
+    carry = fs._carry
+    rhs = st._rhs(2, carry, torch.zeros(st.n_act, dtype=st.dtype, device=st.device),
+                  st._nl(carry.u_n)).double()
+    floor = {}
+    for name, op, pc, dt in (("f64", op64, pc64, torch.float64),
+                             ("f32", op32, pc32, torch.float32)):
+        x, b, rows = carry.u_n.to(dt), rhs.to(dt), []
+        for _ in range(KRYLOV_FLOOR_CYCLES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, _ = gmres(op.apply, b, x0=x, M=pc.apply, tol=0.0, restart=st.gmres_iters,
+                         maxiter=st.gmres_iters)
+            r = float(torch.linalg.vector_norm(rhs - op64.apply(x.double()))
+                      / torch.linalg.vector_norm(rhs))
+            torch.cuda.synchronize()
+            rows.append((r, (time.perf_counter() - t0) * 1e3))
+        floor[name] = rows
+    take()
+    log(f"phase 41: the floor: the next BDF2 system solved for {KRYLOV_FLOOR_CYCLES} GMRES "
+        f"cycles from the carry, the relative residual (f64) after each cycle (ms a cycle): "
+        + "; ".join(f"{name}: " + ", ".join(f"{r:.3e} ({ms:.0f})" for r, ms in rows)
+                    for name, rows in floor.items())
+        + f"; krylov_rtol {st.krylov_rtol:g}: the f64 solve's floor "
+        f"{min(r for r, _ in floor['f64']):.3e}; in f32 the JAX package's GMRES ends at "
+        f"{floor['f32'][-1][0]:.3e} (its single Gram-Schmidt pass and normal equations)")
+    if not min(r for r, _ in floor["f64"]) <= st.krylov_rtol:
+        raise AssertionError(f"phase 41: the f64 solve's floor {floor['f64']}")
+    del op32, pc32, a_bc
+    # phase 4's accuracy: 10 more steps from the carry after step 10
+    acc = accuracy(host, st, carry10, "phase 41")
+    take()
+    t_single = time.perf_counter() - t_phase
+    # a batch: KRYLOV_BATCH copies of the state after the steps, distinct
+    # controls, one joint Krylov solve a step (S for every product)
+    up = fs._carry.u_n.double().cpu().numpy()
+    amps = np.linspace(0.5, 1.5, KRYLOV_BATCH)
+    u_seq = np.tile(amps[:, None] * np.asarray([0.3, -0.2]), (KRYLOV_BATCH_STEPS, 1, 1))
+    up_b = torch.as_tensor(up, dtype=st.dtype, device=st.device).expand(KRYLOV_BATCH, -1)
+    cyc0 = st.krylov_cycles
+    t0 = time.perf_counter()
+    carry_b, out_b = st.rollout_open_loop(st.init_carry(up_b.contiguous()), u_seq)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    launches_b = take()
+    want_b = [KRYLOV_BATCH_STEPS + 1, 0, 0, 0, 0,
+              krylov_products(st, st.krylov_cycles - cyc0, KRYLOV_BATCH_STEPS) + 1, 0]
+    _, out_1 = st.rollout_open_loop(st.init_carry(up), u_seq[:, 0])
+    take()
+    y_err = rel_err(out_b.y[:, 0], out_1.y)[0]
+    log(f"phase 41: B={KRYLOV_BATCH} rollout_open_loop of {KRYLOV_BATCH_STEPS} steps (controls "
+        f"linspace(0.5, 1.5) x [0.3, -0.2]) in {t_batch:.2f} s, {st.krylov_cycles - cyc0} "
+        f"cycles, res per step {out_b.res.cpu().numpy().tolist()}; launches K1/K2/P1/K3/F/S/R "
+        f"{launches_b} (expected {want_b}: S for the mass and every Krylov product); member 0 "
+        f"against its single stream: y max|b-s|/max|s| {y_err:.3e} (tol {MEMBER_TOL:g}; one "
+        f"joint solve: each member's step depends on its companions within krylov_rtol)")
+    if launches_b != want_b or not y_err <= MEMBER_TOL or not bool(torch.isfinite(out_b.y).all()):
+        raise AssertionError(f"phase 41: the batch: launches {launches_b}, member 0 {y_err:.3e}")
+    del fs, st, op, pc, op64, pc64, carry, carry_b, x, rhs
+    free_card()
+    # BiCGStab, single stream
+    fs, st, t_setup = solver("bicgstab", BICG_STEPS)
+    res = []
+    t0 = time.perf_counter()
+    for i in range(BICG_STEPS):
+        y = fs.step(controls(i))
+        res.append((st.last_krylov_cycles, fs.last_solve_res))
+    torch.cuda.synchronize()
+    t_bicg = time.perf_counter() - t0
+    launches_c = take()
+    log(f"phase 41: BiCGStab: Stepper built in {t_setup:.2f} s; {BICG_STEPS} steps in "
+        f"{t_bicg:.2f} s, (cycles, res) per step {res}, y[-1] = {np.asarray(y).tolist()}; "
+        f"launches K1/K2/P1/K3/F/S/R {launches_c}")
+    if not (np.isfinite(y).all() and all(r >= 0.0 for _, r in res)
+            and launches_c[0] == BICG_STEPS + 1):
+        raise AssertionError(f"phase 41: BiCGStab y {y}, res {res}, launches {launches_c}")
+    del fs, st
+    free_card()
+    log(f"phase 41: field error {acc:.3e}; the phase took {time.perf_counter() - t_phase:.1f} s "
+        f"(single stream and accuracy {t_single:.1f} s; {card})")
+    return dict(k1=total[0], s=total[5], r=total[6])
+
+
+def cache_phase(opts: dict, t_restart: float, k, kx: np.ndarray, y_restart: np.ndarray,
+                ys_restart: np.ndarray, counters, card: str) -> dict:
+    """Phase 42: the factor cache on phase 40's restart. The restarted
+    cylinder's Stepper (BDF2 alone, multifrontal) built three times with the
+    cache in a new directory: cold, from the streamed derived entry, and
+    from the primary entry; F's solves and measured errors bitwise equal;
+    phase 40's restarted steps rerun on the streamed factor, y bitwise
+    equal. Then one factor with the knobs inbox='full', FC_MF_PACK=bucket
+    and trim=False: F and the per-stage sweep against plain. Returns F's
+    launches of the rerun."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
+    from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
+    from flowcontrol_tpu_torch.ops.mf_fused import (
+        multifrontal_solve_fused,
+        multifrontal_solve_fused_plain,
+    )
+    from flowcontrol_tpu_torch.parallel.dofsharding import mixed_dof_coordinates
+    from flowcontrol_tpu_torch.solvers import factor_cache
+    from flowcontrol_tpu_torch.solvers.multifrontal import (
+        DERIVED_TAG,
+        MultifrontalLU,
+        multifrontal_solve,
+    )
+
+    t_phase = time.perf_counter()
+    n2 = RESTART_STEPS - RESTART_SAVE
+    env = {k_: os.environ.get(k_) for k_ in ("FLOWCONTROL_TPU_FACTOR_CACHE", "FC_MF_PACK")}
+
+    def build():
+        fs = CylinderFlowSolver.make_default(num_steps=n2, Tstart=t_restart, **opts)
+        fs.load_steady_state()
+        fs.initialize_time_stepping(Tstart=t_restart)
+        t0 = time.perf_counter()
+        st = fs.stepper
+        torch.cuda.synchronize()
+        return fs, st._solvers[-1], time.perf_counter() - t0
+
+    def size(p: Path) -> int:
+        return sum(f.stat().st_size for f in p.iterdir())
+
+    cache = Path(tempfile.mkdtemp(prefix="chip_smoke_factor_cache_"))
+    try:
+        os.environ["FLOWCONTROL_TPU_FACTOR_CACHE"] = str(cache)
+        built = []
+        fs_cold, mf, t_st = build()
+        t0 = time.perf_counter()
+        factor_cache.flush()
+        t_flush = time.perf_counter() - t0
+        built.append(("cold", mf, t_st))
+        del fs_cold
+        entries = {p.name: size(p) for p in cache.iterdir()}
+        (derived,) = [p for p in cache.iterdir() if DERIVED_TAG in p.name]
+        fs, mf, t_st = build()
+        built.append(("again", mf, t_st))
+        # the derived entry's files read alone, after the streamed load (the
+        # page cache warm for both)
+        t0 = time.perf_counter()
+        for f in derived.iterdir():
+            np.load(f)
+        t_read = time.perf_counter() - t0
+        shutil.rmtree(derived)
+        fs_p, mf, t_st = build()
+        built.append(("derived entry removed", mf, t_st))
+        del fs_p
+        factor_cache.flush()
+        kinds = [m.loaded_from for _, m, _ in built]
+        for name, m, t_st in built:
+            log(f"phase 42: {name}: loaded_from {m.loaded_from!r}; Stepper built in {t_st:.2f} s; "
+                "multifrontal set-up s: "
+                + ", ".join(f"{k_} {v:.2f}" for k_, v in m.timings.items())
+                + f"; solve_err {m.solve_err:.6e}")
+        d_bytes = entries[derived.name]
+        p_bytes = sum(v for k_, v in entries.items() if k_ != derived.name)
+        log(f"phase 42: entries on disk: primary {p_bytes / 1e9:.4f} GB, derived "
+            f"{d_bytes / 1e9:.4f} GB (written in the background; the flush after the cold "
+            f"build waited {t_flush:.2f} s); the streamed load {d_bytes / 1e9 / built[1][1].timings['load']:.2f} "
+            f"GB/s (read and copied to the card), the same files read alone (np.load, warm page "
+            f"cache) {d_bytes / 1e9 / t_read:.2f} GB/s; {card}")
+        b = torch.as_tensor(np.random.default_rng(7).standard_normal(mf.n), dtype=torch.float32,
+                            device=mf.device)
+        xs = [m.solve(b) for _, m, _ in built]
+        same = all(torch.equal(x, xs[0]) for x in xs) and len({m.solve_err for _, m, _ in built}) == 1
+        log(f"phase 42: F's solve of one right-hand side bitwise equal across the three "
+            f"factors, solve_err equal: {same}")
+        if kinds != ["build", "stream", "primary"] or not same:
+            raise AssertionError(f"phase 42: loaded_from {kinds}, bitwise {same}")
+        del built, xs
+        mf_default = fs.stepper._solvers[-1]
+        # phase 40's restarted steps on the streamed factor
+        dt = fs.params_time.dt
+        for c in counters:
+            c.launches = 0
+        k.x = kx.copy()
+        y, ys = y_restart, []
+        for _ in range(n2):
+            y = fs.step(k.step(-y[:1], dt))
+            ys.append(y)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        same_y = bool(np.array_equal(np.asarray(ys), ys_restart))
+        log(f"phase 42: phase 40's {n2} restarted steps on the streamed factor: y bitwise equal "
+            f"to phase 40's: {same_y}; launches K1/K2/P1/K3/F/S/R {launches}")
+        if not same_y or launches != [n2, 0, 0, 0, 2 * n2, 0, 0]:
+            raise AssertionError(f"phase 42: the rerun: bitwise {same_y}, launches {launches}")
+        # the knobs, cache off
+        os.environ["FLOWCONTROL_TPU_FACTOR_CACHE"] = "off"
+        os.environ["FC_MF_PACK"] = "bucket"
+        lhs = to_scipy_csr(fs.forms.transient_lhs(2, fs.fields.U0), fs.space.cell_dofs,
+                           fs.space.n_dofs)
+        a_bc, _ = fs._bcset_perturbation().eliminate_csr(lhs)
+        t0 = time.perf_counter()
+        mfk = MultifrontalLU(a_bc, mixed_dof_coordinates(fs.space), mf_default.device,
+                             dtype=torch.float32, inbox="full", trim=False)
+        t_k = time.perf_counter() - t0
+        rng = np.random.default_rng(8)
+        errs, times = {}, {}
+        for rows in (1, 8, 64):
+            bb = torch.as_tensor(rng.standard_normal((rows, mfk.n)), dtype=torch.float32,
+                                 device=mfk.device)
+            if rows <= 8:
+                got = multifrontal_solve_fused(mfk, bb)
+            else:
+                got = multifrontal_solve(mfk, bb)
+            errs[rows] = rel_err(got, multifrontal_solve_fused_plain(mfk, bb))[0]
+            for name, m in (("knobs", mfk), ("default", mf_default)):
+                if rows <= 8:
+                    times[name, rows] = queued_ms(lambda: multifrontal_solve_fused(m, bb))[0]
+                else:
+                    times[name, rows] = device_ms([lambda: multifrontal_solve(m, bb)], reps=5)
+        log(f"phase 42: knob factor (inbox='full', FC_MF_PACK=bucket, trim=False) built in "
+            f"{t_k:.2f} s: {len(mfk.stages)} stages ({len(mf_default.stages)} by default), factor "
+            f"stacks {mfk.factor_bytes / 1e9:.4f} GB ({mf_default.factor_bytes / 1e9:.4f}), "
+            f"max_front {mfk.max_front} ({mf_default.max_front}), solve_err {mfk.solve_err:.3e}; "
+            f"against plain: F rows 1 {errs[1]:.3e}, rows 8 {errs[8]:.3e} (tol {F_TOL:g}), the "
+            f"per-stage sweep (K2, P1) at B=64 {errs[64]:.3e} (tol {MF_TOL:g}); device ms per solve "
+            f"knobs | default: F rows 1 {times['knobs', 1]:.4f} | {times['default', 1]:.4f}, "
+            f"rows 8 {times['knobs', 8]:.4f} | {times['default', 8]:.4f} (queued events), sweep "
+            f"B=64 {times['knobs', 64]:.4f} | {times['default', 64]:.4f} (profiler); {card}")
+        if not (errs[1] <= F_TOL and errs[8] <= F_TOL and errs[64] <= MF_TOL):
+            raise AssertionError(f"phase 42: the knob factor against plain: {errs}")
+        del fs, mf, mf_default, mfk
+    finally:
+        for k_, v in env.items():
+            if v is None:
+                os.environ.pop(k_, None)
+            else:
+                os.environ[k_] = v
+        shutil.rmtree(cache, ignore_errors=True)
+    log(f"phase 42: the phase took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return dict(f=launches[4])
 
 
 def main() -> int:
@@ -2636,6 +3050,9 @@ def main() -> int:
     from flowcontrol_tpu_torch.solvers.block_lu import BlockLU
 
     t_run = time.perf_counter()
+    # the factor cache off for every phase but phase 42, so that the set-up
+    # numbers keep their meaning (a warm entry would spare the factorization)
+    os.environ["FLOWCONTROL_TPU_FACTOR_CACHE"] = "off"
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -3011,12 +3428,16 @@ def main() -> int:
     synthesis(ops, u0_cyl, p0_cyl, counters, card)
 
     # ── phase 40: checkpoints and the restart at BDF2, on a card holding
-    # nothing of the earlier phases
+    # nothing of the earlier phases; phase 42: the factor cache on it
     free_card()
-    restart_phase(u0_cyl, p0_cyl, counters, card)
+    cached = restart_phase(u0_cyl, p0_cyl, counters, card)
+
+    # ── phase 41: the Krylov backends, on a card holding nothing else ──────
+    krylov = krylov_phase(u0_cyl, p0_cyl, host, counters, card)
+    s_launches = [s_launches[0] + krylov["s"], s_launches[1] + krylov["r"]]
 
     src = "flowcontrol_tpu_torch/csrc/"
-    f_launches = mfp["launches"][4] + cav["launches"][4]
+    f_launches = mfp["launches"][4] + cav["launches"][4] + cached["f"]
     k2_cyl_launches = open_mf["launches"][1] + closed_mf["launches"][1]
     k2_launches = k2_cyl_launches + open_c["launches"][1]
     p1_cyl_launches = open_mf["launches"][2] + closed_mf["launches"][2]
@@ -3024,7 +3445,7 @@ def main() -> int:
     log(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f} s wall")
     print(json.dumps({"kernels": [
         kernel_row("K1 nl_convection", src + "nl_convection.cu",
-            "flowcontrol_tpu/ops/pallas_nl.py:136", k1_launches, k1, None),
+            "flowcontrol_tpu/ops/pallas_nl.py:136", k1_launches + krylov["k1"], k1, None),
         kernel_row(f"K1 nl_convection B={BATCH} cylinder", src + "nl_convection.cu",
             "flowcontrol_tpu/ops/pallas_nl.py:136", k1_batched_launches,
             dict(max_abs_err=k1["max_abs_err"], **k1["widths"][BATCH]), None),
@@ -3058,7 +3479,8 @@ def main() -> int:
             open_c["launches"][2], p1[CAV_BATCH], p1[CAV_BATCH]["library_ms"],
             **{k: p1[CAV_BATCH][k] for k in P1_EXTRA}),
         kernel_row(f"F multifrontal_solve_fused cylinder n={n_cyl}", src + "mf_fused.cu",
-            "flowcontrol_tpu/solvers/multifrontal.py:1202", mfp["launches"][4], f_cyl, None,
+            "flowcontrol_tpu/solvers/multifrontal.py:1202", mfp["launches"][4] + cached["f"], f_cyl,
+            None,
             sweep_ms=f_cyl["sweep_ms"]),
         kernel_row(f"F multifrontal_solve_fused cavity n={n_cav}", src + "mf_fused.cu",
             "flowcontrol_tpu/solvers/multifrontal.py:1202", cav["launches"][4], f_cav, None,

@@ -596,7 +596,11 @@ class FlowSolver(ABC):
         size on CUDA, where the Stepper takes the dense LU while its f64
         factorization fits the card (``dense_lu_max_dofs_device``) and the
         multifrontal solve past that; the host sparse LU on the CPU beyond
-        DENSE_LU_MAX_DOFS (the reference's rule, flowsolver.py:581-598)."""
+        DENSE_LU_MAX_DOFS (the reference's rule, flowsolver.py:581-598).
+        'gmres' and 'bicgstab' are taken when asked for; 'auto' never picks
+        them, where the JAX package's GPU rule takes GMRES past
+        DENSE_LU_MAX_DOFS (flowsolver.py:596-598): which solve 'auto' should
+        take on the card waits for the benchmark's comparison (ROADMAP.md)."""
         b = self.params_solver.solver_backend
         if b != "auto":
             return b
@@ -677,6 +681,10 @@ class FlowSolver(ABC):
         self.fields.p_n = field.p
 
         self.y_meas = out.y.detach().cpu().numpy().astype(float)
+        # the step's relative linear-solve residual: always measured on the
+        # Krylov backends, -1.0 on the direct ones unless stepper_options
+        # measure_residual=True
+        self.last_solve_res = float(out.res.max())
         runtime = time.time() - t0
 
         if self._niter_multiple_of(self.iter, self.verbose):

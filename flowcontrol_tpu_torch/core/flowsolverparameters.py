@@ -7,7 +7,8 @@ API-parity port of the reference's 8 Param* dataclasses
   to) an XDMF path — mesh generation is a first-class host-side step here.
 - ``ParamSolver`` gains device-solver knobs: ``device`` (a torch device
   string, ``'cuda'`` unless the caller asks for ``'cpu'``),
-  ``solver_backend`` ('auto' | 'host_lu' | 'dense_lu'), ``precision``
+  ``solver_backend`` ('auto' | 'host_lu' | 'dense_lu' | 'gmres' |
+  'bicgstab'), ``precision``
   ('auto' | 'f32' | 'f64') and ``stepper_options`` (Stepper fields passed
   through) controlling the device hot loop.
 """
@@ -116,13 +117,15 @@ class ParamSolver(ParamFlowSolver):
     time_scheme: str = "bdf"  # 'bdf' (BDF1→BDF2 ramp) or 'cn'
     # device additions:
     device: str = "cuda"  # torch device of the hot loop; 'cpu' only when asked for
-    solver_backend: str = "auto"  # 'auto' | 'host_lu' | 'dense_lu'
+    solver_backend: str = "auto"  # 'auto' | 'host_lu' | 'dense_lu' | 'gmres' | 'bicgstab'
     precision: str = "auto"  # 'auto' (f64 on CPU, f32 on CUDA) | 'f32' | 'f64'
     pin_pressure: bool | None = None  # None = auto-detect enclosed flows
     # extra Stepper keyword overrides — any core.stepper.Stepper dataclass
     # field, e.g. force_substructure=True (the multifrontal solve even
     # where the dense LU fits) or trisolve="cuda" (the blocked LU solved by
-    # kernel K3 in place of the pivoted LU's triangular solves)
+    # kernel K3 in place of the pivoted LU's triangular solves), or the
+    # Krylov backends' krylov_rtol, gmres_iters, krylov_max_cycles and
+    # measure_residual
     stepper_options: dict = field(default_factory=dict)
 
 

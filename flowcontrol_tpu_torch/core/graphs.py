@@ -33,15 +33,18 @@ from flowcontrol_tpu_torch.ops.cuda_build import COUNTED
 
 class Program:
     """``body()`` run eagerly on the CPU and as a captured CUDA graph on
-    CUDA. ``stream`` (a side stream) and ``pool`` (a graph memory pool)
-    may be shared by the programs of one Stepper, which runs them one at a
-    time. ``fixed`` holds the tensors the body reads and writes (the
-    caller's inputs and outputs), alive for as long as the program."""
+    CUDA (eagerly there too with ``graphed=False``: a body whose loop
+    length the host decides, as the Krylov solves' residual loop).
+    ``stream`` (a side stream) and ``pool`` (a graph memory pool) may be
+    shared by the programs of one Stepper, which runs them one at a time.
+    ``fixed`` holds the tensors the body reads and writes (the caller's
+    inputs and outputs), alive for as long as the program."""
 
     def __init__(self, body: Callable, device: torch.device, stream=None, pool=None,
-                 fixed=None):
+                 fixed=None, graphed: bool = True):
         self.body = body
         self.device = device
+        self.graphed = graphed
         self.stream = stream
         self.pool = pool
         self.fixed = fixed
@@ -60,7 +63,7 @@ class Program:
         """One run of the body; returns what the body returns (on CUDA
         after the first run: the captured outputs, which the next run
         overwrites)."""
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.graphed:
             return self.body()
         if self.graph is None:
             return self._warm_up_and_capture()

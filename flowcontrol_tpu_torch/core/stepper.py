@@ -38,8 +38,18 @@ triangular solves; ``trisolve="cuda"``: the blocked LU of
 ``solvers/block_lu.py`` solved by kernel K3), else the multifrontal solve
 (``solvers/multifrontal.py``: on CUDA kernel F, the whole solve in one
 launch, for up to 8 right-hand sides, and kernels K2 and P1 per stage for
-wider batches; each wrapper counts its launches). The substructured
-and Krylov solves are later slices (ROADMAP.md).
+wider batches; each wrapper counts its launches). The multifrontal
+factor goes through the disk factor cache (``solvers/factor_cache.py``).
+``backend='gmres'`` or ``'bicgstab'`` keeps no factor: each step is a
+residual-controlled Krylov solve (``solvers/krylov.py``, in f64 whatever
+the step's dtype) with the SIMPLE preconditioner, warm-started from the
+previous state, cycles repeated on the host while a member's
+``‖b − A x‖/‖b‖`` is above ``krylov_rtol``; its
+compiled entry points run their bodies eagerly (a loop whose length the
+host decides is not captured). ``StepOutput.res`` is that residual, always
+measured on the Krylov backends, and -1.0 on the direct ones unless
+``measure_residual``. The substructured solves are a later slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -57,10 +67,16 @@ from flowcontrol_tpu_torch.core.graphs import Program
 from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
 from flowcontrol_tpu_torch.fem.bc import BCSet
 from flowcontrol_tpu_torch.ops.nl import NLTables, nonlinear_convection
-from flowcontrol_tpu_torch.ops.spmm import csr_matmul, csr_residual
+from flowcontrol_tpu_torch.ops.spmm import csr_residual, sparse_matvec
 from flowcontrol_tpu_torch.parallel.dofsharding import mixed_dof_coordinates
 from flowcontrol_tpu_torch.solvers.block_lu import BlockLU
 from flowcontrol_tpu_torch.solvers.direct import DeviceDenseLU, HostSparseLU
+from flowcontrol_tpu_torch.solvers.krylov import (
+    CsrOperator,
+    bicgstab,
+    build_simple_preconditioner,
+    gmres,
+)
 from flowcontrol_tpu_torch.solvers.multifrontal import MultifrontalLU
 
 logger = logging.getLogger(__name__)
@@ -88,6 +104,11 @@ class StepOutput(NamedTuple):
     dE: torch.Tensor  # perturbation kinetic energy (...)
     diverged: torch.Tensor  # bool (...), per batch member
     x: torch.Tensor | None  # full state (None in stacked rollout outputs)
+    #: relative linear-solve residual ||b - A x|| / ||b|| of the step (...):
+    #: always measured on the Krylov backends (it ends their cycle loop);
+    #: -1.0 on the direct ones unless measure_residual=True (the JAX
+    #: package's StepOutput.res)
+    res: torch.Tensor | None = None
 
 
 _CARRY_TENSORS = ("u_n", "u_nn", "mu_n", "mu_nn", "n_prev", "u_ctrl_prev")
@@ -133,16 +154,6 @@ def csr_to_device(a_csr, device, dtype) -> torch.Tensor:
     return t
 
 
-def sparse_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``a @ x`` over the last dimension of x (..., n) for a sparse CSR a:
-    an SpMV for one vector, kernel S (``ops/spmm.py``, summed in a fixed
-    order) for a batch."""
-    if x.dim() == 1:
-        return torch.mv(a, x)
-    flat = x.reshape(-1, x.shape[-1])
-    return csr_matmul(a, flat).reshape(x.shape[:-1] + (a.shape[0],))
-
-
 def sparse_residual(a64: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``(b.double() - a64 @ x.double()).to(b.dtype)`` over the last
     dimension: the composition for one vector, S's fused residual
@@ -176,7 +187,7 @@ class Stepper:
     c_rows: np.ndarray  # (ns, n) sensor matrix
     force_cols: np.ndarray  # (n_act, n) body-force load vectors
     scheme: str = "bdf"  # 'bdf' or 'cn'
-    backend: str = "dense_lu"  # 'dense_lu' | 'host_lu'
+    backend: str = "dense_lu"  # 'dense_lu' | 'host_lu' | 'gmres' | 'bicgstab'
     #: the first step's order: 1 (BDF1, then BDF2), or 2 (a restart from a
     #: checkpoint pair: BDF2 from the first step, its system alone built;
     #: ref: restart_order=2, flowsolver.py:795-796); 'cn' under scheme='cn'
@@ -191,6 +202,23 @@ class Stepper:
     #: of solvers/block_lu.py, solved by the fused substitution kernel K3)
     trisolve: str = "torch"
     block_lu_bs: int = 1024
+    #: the Krylov backends: one cycle is gmres(restart=maxiter=gmres_iters)
+    #: (up to gmres_iters restarts of gmres_iters Arnoldi steps) or
+    #: bicgstab(maxiter=gmres_iters); cycles repeat while any member's
+    #: relative residual is above krylov_rtol, krylov_max_cycles at most
+    gmres_iters: int = 30
+    gmres_restarts: int = 2  # unused: the JAX package's legacy fixed budget
+    krylov_rtol: float = 1e-8
+    krylov_max_cycles: int = 8
+    #: measure ||b - A x|| / ||b|| on the direct paths too (one more sparse
+    #: product a step) and report it in StepOutput.res
+    measure_residual: bool = False
+    #: the multifrontal factor's knobs (None: the FC_MF_LEAF_MAX, FC_MF_TRIM
+    #: and FC_MF_INBOX environment variables, then the defaults; see
+    #: MultifrontalLU)
+    mf_leaf_max: int | None = None
+    mf_trim: bool | None = None
+    mf_inbox: str | None = None
     #: the reference's size rule for its two dense kinds: 'lapack' (pivoted
     #: LU) up to this size, 'block' above. Under trisolve='cuda' 'block' is
     #: the BlockLU factor; under 'torch' it is the same pivoted LU as
@@ -212,9 +240,10 @@ class Stepper:
         n = space.n_dofs
         dt, dev_t = self.dtype, torch.device(self.device)
         self.device = dev_t
-        if self.backend not in ("dense_lu", "host_lu"):
+        if self.backend not in ("dense_lu", "host_lu", "gmres", "bicgstab"):
             raise ValueError(
-                f"backend must be 'dense_lu' or 'host_lu', got {self.backend!r}"
+                "backend must be 'dense_lu', 'host_lu', 'gmres' or 'bicgstab', got "
+                f"{self.backend!r}"
             )
         if self.backend == "host_lu" and dev_t.type != "cpu":
             raise ValueError(
@@ -256,7 +285,10 @@ class Stepper:
         if gp.shape[0]:
             profiles[: gp.shape[0], :] = gp[:, bcs.dofs]
 
-        d: dict = {"lift_act": [], "lift_static": [], "a_bc": {}, "a_refine": {}}
+        #: the Krylov backends' solve (the compiled entry points then run
+        #: their bodies eagerly)
+        self._krylov = self.backend in ("gmres", "bicgstab")
+        d: dict = {"lift_act": [], "lift_static": [], "a_bc": {}, "a_refine": {}, "a_res": {}}
         self._solvers: list = []
         self._solver_kinds: list = []
         #: refinement sweeps per order index (REFINE_SWEEPS_F32 for an f32
@@ -280,6 +312,8 @@ class Stepper:
                 # no factor for BDF1: keep A1 (BC rows/cols eliminated), in
                 # f64, for the Richardson matvec (its residual is taken in f64)
                 d["a_bc"][oi] = csr_to_device(a_bc, dev_t, torch.float64)
+                if self.measure_residual:
+                    d["a_res"][oi] = d["a_bc"][oi]
                 self._solvers.append(None)
                 self._solver_kinds.append("borrowed")
                 continue
@@ -294,9 +328,21 @@ class Stepper:
             elif self.backend == "dense_lu":
                 # past the dense range: host-f64 multifrontal factors stored
                 # in dt
-                mf = MultifrontalLU(a_bc, mixed_dof_coordinates(space), dev_t, dtype=dt)
+                mf = MultifrontalLU(a_bc, mixed_dof_coordinates(space), dev_t, dtype=dt,
+                                    leaf_max=self.mf_leaf_max, trim=self.mf_trim,
+                                    inbox=self.mf_inbox)
                 self._solvers.append(mf)
                 self._solver_kinds.append("multifrontal")
+            elif self._krylov:
+                # no factor: a_bc on the device and the SIMPLE
+                # preconditioner (its Schur inverse dense), both in f64
+                # whatever dt is: see _krylov_solve
+                op = CsrOperator(csr_to_device(a_bc, dev_t, torch.float64))
+                self._solvers.append((op, build_simple_preconditioner(
+                    a_bc, bcs.free_mask, space.n_vel_dofs, op, dev_t, torch.float64)))
+                self._solver_kinds.append(self.backend)
+                logger.info("prepare order=%s: %s solve", order, self.backend)
+                continue
             else:
                 self._solvers.append(HostSparseLU(a_bc))
                 self._solver_kinds.append("host")
@@ -313,6 +359,13 @@ class Stepper:
                 # below cond(A)·eps_f32.
                 self._refine[oi] = self.REFINE_SWEEPS_F32
                 d["a_refine"][oi] = csr_to_device(a_bc, dev_t, torch.float64)
+            if self.measure_residual and self._solver_kinds[-1] != "host":
+                # the residual's operator: the refinement sweep's f64 A where
+                # there is one (the f32 solve's residual then taken in f64),
+                # else A in dt
+                d["a_res"][oi] = d["a_refine"].get(oi)
+                if d["a_res"][oi] is None:
+                    d["a_res"][oi] = csr_to_device(a_bc, dev_t, dt)
             logger.info("prepare order=%s: %s solve", order, self._solver_kinds[-1])
 
         d["m"] = csr_to_device(
@@ -341,6 +394,8 @@ class Stepper:
         self._programs: dict = {}
         self._statics: dict = {}
         self._graph_stream = self._graph_pool = None
+        #: cycles the last Krylov solve ran, and all Krylov solves so far
+        self.last_krylov_cycles = self.krylov_cycles = 0
 
     # ── Step math ────────────────────────────────────────────────────────────
 
@@ -387,7 +442,77 @@ class Stepper:
             return torch.as_tensor(s.solve(rhs.numpy()), dtype=rhs.dtype)
         return s.solve(rhs)
 
+    def _residual(self, oi: int, rhs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """Relative residual ||rhs - A x|| / ||rhs|| per batch member, A the
+        order's ``a_res`` operator. An f64 A with an f32 step (the
+        refinement sweep's, or the borrowed step's A1) gives the residual in
+        f64, rounded to f32 (``sparse_residual``: S's fused residual for a
+        batch); in f64 it is the JAX package's arithmetic."""
+        a = self._dev["a_res"][oi]
+        if a.dtype != x.dtype:
+            r = sparse_residual(a, rhs, x)
+        else:
+            r = rhs - sparse_matvec(a, x)
+        bn = torch.clamp(torch.linalg.vector_norm(rhs, dim=-1), min=1e-30)
+        return torch.linalg.vector_norm(r, dim=-1) / bn
+
+    def _krylov_solve(self, oi: int, rhs: torch.Tensor, x0: torch.Tensor):
+        """Residual-controlled Krylov (the JAX package's ``_krylov_solve``):
+        one cycle, then cycles while any member's measured relative residual
+        is above ``krylov_rtol`` and fewer than ``krylov_max_cycles`` have
+        run. Each cycle waits on the host once, for its residual. Returns
+        (x, res) in the step's dtype; the cycles are counted in
+        ``last_krylov_cycles`` and ``krylov_cycles``.
+
+        The solve runs in f64 whatever the step's dtype (rhs and the start
+        cast up, x and res cast back): in f32 the JAX package's GMRES loses
+        the Arnoldi basis's orthogonality within ~10 steps (its one
+        Gram-Schmidt pass) and solves its least squares through the normal
+        equations (H's condition squared), so at the cylinder's widths its
+        restarts diverge to inf; BiCGStab with tol 0 runs its recursive
+        residual into underflow (ROADMAP.md, "Faults in the reference"). In
+        f64 it is the JAX package's arithmetic."""
+        op, pc = self._solvers[oi]
+        b = rhs.to(torch.float64)
+        bn = torch.clamp(torch.linalg.vector_norm(b, dim=-1), min=1e-30)
+
+        def resnorm(x):
+            return torch.linalg.vector_norm(b - op.apply(x), dim=-1) / bn
+
+        def cycle(x):
+            if self.backend == "gmres":
+                x, _ = gmres(op.apply, b, x0=x, M=pc.apply, tol=0.0,
+                             restart=self.gmres_iters, maxiter=self.gmres_iters)
+            else:
+                x, _ = bicgstab(op.apply, b, x0=x, M=pc.apply, tol=0.0,
+                                maxiter=self.gmres_iters)
+            return x
+
+        x = cycle(x0.to(torch.float64))
+        res, cycles = resnorm(x), 1
+        while cycles < self.krylov_max_cycles and bool((res > self.krylov_rtol).any()):
+            x = cycle(x)
+            res, cycles = resnorm(x), cycles + 1
+        self.last_krylov_cycles = cycles
+        self.krylov_cycles += cycles
+        return x.to(rhs.dtype), res.to(rhs.dtype)
+
+    def _solve_step(self, order, rhs, x_guess):
+        """The step's solve: (x, res), the solution and its relative
+        residual (res -1.0 where it is not measured: the direct paths
+        without ``measure_residual``, and the host LU). The Krylov backends
+        start from ``x_guess``."""
+        oi = self._order_idx[order]
+        if self._krylov:
+            return self._krylov_solve(oi, rhs, x_guess)
+        x = self._solve(order, rhs)
+        if oi in self._dev["a_res"]:
+            return x, self._residual(oi, rhs, x)
+        return x, torch.full(rhs.shape[:-1], -1.0, dtype=rhs.dtype, device=rhs.device)
+
     def _solve(self, order, rhs):
+        """x = A⁻¹ rhs by the order's direct solve (its refinement sweeps
+        included)."""
         oi = self._order_idx[order]
         if self._solver_kinds[oi] == "borrowed":
             # BDF1 first step in the single-factor regime: Richardson
@@ -426,41 +551,42 @@ class Stepper:
         return u_ctrl
 
     def _step_values(self, order, carry: StepCarry, u_ctrl: torch.Tensor):
-        """The step's new values: (x, M x, N(u_n), y, dE, diverged)."""
+        """The step's new values: (x, M x, N(u_n), y, dE, diverged, res)."""
         nl_n = self._nl(carry.u_n)
         rhs = self._rhs(order, carry, u_ctrl, nl_n)
-        x = self._solve(order, rhs)
+        x, res = self._solve_step(order, rhs, carry.u_n)
         y = x @ self._dev["c"].T
         # the ONE mass apply of the step: feeds dE now and the next step's
         # RHS via the carry (see StepCarry)
         mx = self._mass(x)
         de = 0.5 * torch.einsum("...i,...i->...", x, mx)
         diverged = ~torch.isfinite(x).all(dim=-1)
-        return x, mx, nl_n, y, de, diverged
+        return x, mx, nl_n, y, de, diverged, res
 
     def step(self, carry: StepCarry, u_ctrl) -> tuple[StepCarry, StepOutput]:
         """One time step, run eagerly: (carry, u_ctrl (..., n_act)) ->
         (carry', StepOutput). :meth:`compiled_step` gives the same step as
         a CUDA graph."""
         u_ctrl = self._control(u_ctrl)
-        x, mx, nl_n, y, de, diverged = self._step_values(self._order_of(carry.it), carry, u_ctrl)
+        x, mx, nl_n, y, de, diverged, res = self._step_values(self._order_of(carry.it), carry,
+                                                              u_ctrl)
         new_carry = StepCarry(
             u_n=x, u_nn=carry.u_n, mu_n=mx, mu_nn=carry.mu_n, n_prev=nl_n,
             u_ctrl_prev=u_ctrl, it=carry.it + 1,
         )
-        return new_carry, StepOutput(y=y, dE=de, diverged=diverged, x=x)
+        return new_carry, StepOutput(y=y, dE=de, diverged=diverged, x=x, res=res)
 
     def _advance(self, order, s: StepCarry, u_ctrl: torch.Tensor):
         """One step on the static carry ``s``, in place: the body of every
-        captured program. Returns (y, dE, diverged, x)."""
-        x, mx, nl_n, y, de, diverged = self._step_values(order, s, u_ctrl)
+        captured program. Returns (y, dE, diverged, x, res)."""
+        x, mx, nl_n, y, de, diverged, res = self._step_values(order, s, u_ctrl)
         s.u_nn.copy_(s.u_n)
         s.mu_nn.copy_(s.mu_n)
         s.u_n.copy_(x)
         s.mu_n.copy_(mx)
         s.n_prev.copy_(nl_n)
         s.u_ctrl_prev.copy_(u_ctrl)
-        return y, de, diverged, x
+        return y, de, diverged, x, res
 
     # ── Programs: the static carry and the captured bodies ──────────────────
 
@@ -499,11 +625,12 @@ class Stepper:
         (body, its fixed tensors) on first use."""
         prog = self._programs.get(key)
         if prog is None:
-            if self.device.type == "cuda" and self._graph_stream is None:
+            if self.device.type == "cuda" and not self._krylov and self._graph_stream is None:
                 self._graph_stream = torch.cuda.Stream(self.device)
                 self._graph_pool = torch.cuda.graph_pool_handle()
             body, fixed = make_body()
-            prog = Program(body, self.device, self._graph_stream, self._graph_pool, fixed)
+            prog = Program(body, self.device, self._graph_stream, self._graph_pool, fixed,
+                           graphed=not self._krylov)
             self._programs[key] = prog
         return prog
 
@@ -539,14 +666,14 @@ class Stepper:
         a CUDA graph, captured once per batch shape and control shape over
         a static carry; the first step (``carry.it == 0``: BDF1 with its
         own factor, the borrowed BDF1 step, or a restart's BDF2 step) runs
-        eagerly, once per run.
+        eagerly, once per run. On the Krylov backends, and on the CPU, it is
+        :meth:`step`.
         A call copies the carry in (skipped when it is the carry the
         previous call returned, which the static carry still holds: the
         caller treats returned carries as values and does not write into
         them) and ``u_ctrl``, replays, and returns copies: a carry or
-        output the caller holds keeps its values. On the CPU it is
-        :meth:`step`."""
-        if self.device.type != "cuda":
+        output the caller holds keeps its values."""
+        if self.device.type != "cuda" or self._krylov:
             return self.step
         return self._graphed_step
 
@@ -563,10 +690,11 @@ class Stepper:
 
         prog = self._program(("step", order, tuple(s.u_n.shape), tuple(u_ctrl.shape)), make)
         prog.fixed["u"].copy_(u_ctrl)
-        y, de, diverged, _ = prog.run()
+        y, de, diverged, _, res = prog.run()
         new = self._returned(s, carry.it + 1, u_nn=carry.u_n, mu_nn=carry.mu_n,
                              u_ctrl_prev=u_ctrl)
-        return new, StepOutput(y=y.clone(), dE=de.clone(), diverged=diverged.clone(), x=new.u_n)
+        return new, StepOutput(y=y.clone(), dE=de.clone(), diverged=diverged.clone(), x=new.u_n,
+                               res=res.clone())
 
     def _roll(self, carry: StepCarry, kind, num_steps: int, inputs: dict, outputs: dict,
               make_step):
@@ -607,7 +735,7 @@ class Stepper:
     def make_rollout_open_loop(self, with_state: bool = False):
         """The counterpart of the JAX package's jitted scan of the step: a
         callable ``(carry, u_seq (T, ..., n_act)) -> (carry', StepOutput)``
-        with y, dE and diverged stacked over T, and x stacked too with
+        with y, dE, diverged and res stacked over T, and x stacked too with
         ``with_state`` (T·B·n values beside the resident factor), else
         None: the final state is in the carry. On CUDA every step after
         the first of a run (``it == 0``, eager) replays one CUDA graph,
@@ -623,15 +751,16 @@ class Stepper:
         steps, batch = u_seq.shape[0], tuple(carry.u_n.shape[:-1])
         lead = (steps,) + batch
         outputs = {"y": (lead + (self.ns,), self.dtype), "dE": (lead, self.dtype),
-                   "diverged": (lead, torch.bool)}
+                   "diverged": (lead, torch.bool), "res": (lead, self.dtype)}
         if with_state:
             outputs["x"] = (lead + (self.space.n_dofs,), self.dtype)
 
         def make_step(order, s, f):
             def body():
                 t = f["t"]
-                y, de, diverged, x = self._advance(order, s, f["u"].index_select(0, t)[0])
-                for k, v in (("y", y), ("dE", de), ("diverged", diverged), ("x", x)):
+                y, de, diverged, x, res = self._advance(order, s, f["u"].index_select(0, t)[0])
+                for k, v in (("y", y), ("dE", de), ("diverged", diverged), ("x", x),
+                             ("res", res)):
                     if k in f:
                         f[k].index_copy_(0, t, v.unsqueeze(0))
                 t.add_(1)
@@ -639,7 +768,7 @@ class Stepper:
 
         carry, outs = self._roll(carry, "open", steps, {"u": u_seq}, outputs, make_step)
         return carry, StepOutput(y=outs["y"], dE=outs["dE"], diverged=outs["diverged"],
-                                 x=outs.get("x"))
+                                 x=outs.get("x"), res=outs["res"])
 
     def rollout_open_loop(self, carry: StepCarry, u_seq, with_state: bool = False):
         """Step through a prescribed control sequence (T, ..., n_act):
@@ -696,7 +825,7 @@ class Stepper:
                     fb = feedback_sign * f["yk"]
                     u = mv(f["cd"], f["xk"]) + mv(f["dd"], fb)
                     xk = mv(f["ad"], f["xk"]) + mv(f["bd"], fb)
-                    y, de, diverged, _ = self._advance(order, s, u)
+                    y, de, diverged, _, _ = self._advance(order, s, u)
                     for k, v in (("y", y), ("dE", de), ("u", u), ("diverged", diverged)):
                         f[k].index_copy_(0, t, v.unsqueeze(0))
                     f["yk"].copy_(y)

@@ -254,6 +254,16 @@ def csr_matmul(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"no S path for a on {a.device} and x on {x.device}")
 
 
+def sparse_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``a @ x`` over the last dimension of x (..., n) for a sparse CSR a:
+    an SpMV for one vector, kernel S (``ops/spmm.py``, summed in a fixed
+    order) for a batch."""
+    if x.dim() == 1:
+        return torch.mv(a, x)
+    flat = x.reshape(-1, x.shape[-1])
+    return csr_matmul(a, flat).reshape(x.shape[:-1] + (a.shape[0],))
+
+
 def _csr_residual_cuda(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if a.dtype != torch.float64 or x.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"S's residual takes a float64 matrix and float32 b and x, got a "

@@ -26,17 +26,24 @@ past the size where one dense factor fits the device: factor storage is
   walking a stage descriptor array over the same stacks and tables.
 
 The host half is transcribed from the JAX package and gives bitwise the
-same tree, stacks and tables. Not carried over: the disk factor cache and
-its streaming warm load (ROADMAP.md, "The rest of the multifrontal
-solve"); the TPU A/B knobs ``layout='ji'`` and ``einsum`` and the
-concat-growth sweep, which exist for XLA's relayout copies on the TPU
-(replaced: one dataflow, results written in place); ``FC_MF_PACK=bucket``
-and ``FC_MF_INBOX=full`` (still to port).
+same tree, stacks and tables, with its knobs (``leaf_max``, ``trim``,
+``inbox``, ``FC_MF_PACK``, ``FC_MF_PACK_LAM_MB``). The factor goes through
+the disk factor cache (``solvers/factor_cache.py``) as in the JAX package: the
+primary entry (the canonical payload, under the JAX package's own key, so
+either package reads the other's) and a derived entry of this package's own
+(the device layout of :meth:`MultifrontalLU._host_layout`: flat stacks and
+tables, F's and P1's descriptors, the measured error), read back by a
+streaming warm load. Not carried over: the TPU A/B knobs ``layout='ji'``
+and ``einsum`` and the concat-growth sweep, which exist for XLA's relayout
+copies on the TPU (replaced: one dataflow, results written in place).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -57,6 +64,7 @@ from flowcontrol_tpu_torch.ops.mf_matvec import (
     stack_matvec,
     sweep_gather,
 )
+from flowcontrol_tpu_torch.solvers import factor_cache
 from flowcontrol_tpu_torch.solvers.tridiag import graph_levels
 
 logger = logging.getLogger(__name__)
@@ -65,6 +73,24 @@ logger = logging.getLogger(__name__)
 #: for the whole solve); wider batches take the per-stage sweep, whose K2
 #: reads each factor stack once per 8 right-hand sides
 FUSED_MAX_ROWS = 8
+
+#: the set-up split of ``MultifrontalLU.timings``
+TIMING_KEYS = ("ordering+factorization", "repack", "measure_err", "tables", "upload", "load",
+               "total")
+#: the derived cache entry's tag: this package's device layout
+DERIVED_TAG = "torch1"
+#: most bytes one staging copy of the streaming warm load moves
+STREAM_CHUNK_BYTES = 64 * 2**20
+
+
+def primary_key(a_csr, coords: np.ndarray, leaf_max: int, trim: bool, np_store) -> str:
+    """The primary cache entry's key (the canonical factor payload), built
+    exactly as the JAX package builds it (``flowcontrol_tpu/solvers/
+    multifrontal.py:299-313``): the host halves are bitwise equal, so an
+    entry written by either package serves the other."""
+    coords_digest = hashlib.sha256(np.ascontiguousarray(coords).tobytes()).hexdigest()[:16]
+    ver = "multifrontal-v5t" if trim else "multifrontal-v4"
+    return factor_cache.matrix_key(a_csr, ver, leaf_max, np.dtype(np_store).name, coords_digest)
 
 
 @dataclass
@@ -251,7 +277,7 @@ class MFStage:
     fbi: torch.Tensor
     bd: torch.Tensor
     inbox: tuple
-    # set by MultifrontalLU._finalize_p1
+    # set by MultifrontalLU._to_device
     bd32: torch.Tensor | None = None
     p1_inbox: GatherPlan | None = None
     p1_bd: GatherPlan | None = None
@@ -261,9 +287,23 @@ class MultifrontalLU:
     """Factor once on the host (f64); solve many on ``device``.
 
     ``solve`` takes (..., n) right-hand sides. ``timings`` holds the host
-    set-up split in seconds; ``solve_err`` the measured per-solve error of
-    the rounded factors and ``recommended_refine`` the refinement sweeps it
-    calls for (0 or 1).
+    set-up split in seconds (:data:`TIMING_KEYS`; a part the set-up skipped
+    is 0.0); ``loaded_from`` says where the factor came from: 'build' (the
+    ordering and factorization ran; the primary and derived cache entries
+    are then stored in the background), 'primary' (the cached payload, then
+    the repack, the error probe, the tables and the upload) or 'stream' (the
+    cached derived entry read and copied to the device stage by stage);
+    ``solve_err`` the measured per-solve error of the rounded factors and
+    ``recommended_refine`` the refinement sweeps it calls for (0 or 1).
+
+    Knobs, each an explicit argument, else its environment variable, else
+    the JAX package's default: ``leaf_max`` (``FC_MF_LEAF_MAX``, 1536),
+    ``trim`` (``FC_MF_TRIM``, '1': separators trimmed, ``trim_passes=4``; off:
+    0), ``inbox`` (``FC_MF_INBOX``: 'split', each stage's inbox cut into
+    segments by load, or 'full', one table a stage at its largest count); and
+    from the environment only ``FC_MF_PACK`` ('dp': the penalty-DP repack,
+    or 'bucket': the stages of the fixed size grid) and ``FC_MF_PACK_LAM_MB``
+    (8: the DP's price of one stage).
     """
 
     #: per-solve relative-error ceiling (measured by _measure_solve_err)
@@ -271,28 +311,80 @@ class MultifrontalLU:
     #: trajectory class (the JAX package's calibration, kept as is)
     ZERO_SWEEP_ERR = 8e-4
 
-    #: stage overhead, in bytes of factor read, that the DP repack prices
-    #: against padding (the JAX package's default)
-    LAM_BYTES = 8 * 2**20
-
     def __init__(self, a_csr, coords: np.ndarray, device,
-                 dtype: torch.dtype = torch.float32, leaf_max: int = 1536):
+                 dtype: torch.dtype = torch.float32, leaf_max: int | None = None,
+                 trim: bool | None = None, inbox: str | None = None):
         a_csr = a_csr.tocsr()
         n = a_csr.shape[0]
         self.n = n
-        self.leaf_max = int(leaf_max)
         self.device = torch.device(device)
         self.dtype = dtype
+        if leaf_max is None:
+            leaf_max = int(os.environ.get("FC_MF_LEAF_MAX", "1536"))
+        if trim is None:
+            trim = os.environ.get("FC_MF_TRIM", "1") == "1"
+        self.leaf_max, self.trim = int(leaf_max), bool(trim)
+        self.inbox = inbox or os.environ.get("FC_MF_INBOX", "split")
+        if self.inbox not in ("split", "full"):
+            raise ValueError(f"inbox must be 'split' or 'full', got {self.inbox!r}")
+        self.pack = os.environ.get("FC_MF_PACK", "dp")
+        if self.pack not in ("dp", "bucket"):
+            raise ValueError(f"FC_MF_PACK must be 'dp' or 'bucket', got {self.pack!r}")
+        self.lam_mb = float(os.environ.get("FC_MF_PACK_LAM_MB", "8"))
         np_store = np.dtype(str(dtype).removeprefix("torch."))
-        self.timings: dict[str, float] = {}
-        t_all = t0 = time.perf_counter()
-        payload = self._factorize(a_csr, coords, self.leaf_max, np_store)
-        self.timings["ordering+factorization"] = time.perf_counter() - t0
+        self.timings = dict.fromkeys(TIMING_KEYS, 0.0)
+        t_all = time.perf_counter()
+        key = primary_key(a_csr, coords, self.leaf_max, self.trim, np_store)
+        #: the derived entry: this package's device layout (the JAX
+        #: package's derived entries hold the TPU's)
+        self.derived_key = f"{key}-{DERIVED_TAG}-{self.pack}-{self.lam_mb:g}-{self.inbox}"
+        self.loaded_from = None
+        ded = factor_cache.entry_dir(self.derived_key)
+        if ded is not None:
+            t0 = time.perf_counter()
+            try:
+                self._load_derived_streaming(ded)
+                self.loaded_from = "stream"
+            except Exception as e:  # a cache miss: the cold path rebuilds the entry
+                logger.warning("derived cache entry unreadable (%r), rebuilding: %s", e, ded)
+            self.timings["load"] = time.perf_counter() - t0
+        if self.loaded_from is None:
+            self._build(a_csr, coords, key, np_store)
+        self.recommended_refine = (
+            0 if 0 <= self.solve_err < self.ZERO_SWEEP_ERR
+            or np.dtype(np_store) == np.float64
+            else 1
+        )
+        self.timings["total"] = time.perf_counter() - t_all
+        logger.info("multifrontal: ready in %.1fs (%s) — %d stages, factor %.3f GB",
+                    self.timings["total"], self.loaded_from, self.n_depths,
+                    self.factor_bytes / 1e9)
+
+    def _build(self, a_csr, coords, key: str, np_store) -> None:
+        """The cold path (the primary entry read, or the ordering and
+        factorization), then the repack, the error probe, the tables and the
+        upload; the derived entry is stored in the background."""
+        n = self.n
+        t0 = time.perf_counter()
+        cached = factor_cache.load(key)
+        if cached is not None and int(cached["n"]) == n:
+            payload = {k: v for k, v in cached.items() if k != "n"}
+            self.loaded_from = "primary"
+            self.timings["load"] += time.perf_counter() - t0
+        else:
+            payload = self._factorize(a_csr, coords, self.leaf_max, np_store, trim=self.trim)
+            self.loaded_from = "build"
+            self.timings["ordering+factorization"] = time.perf_counter() - t0
+            # background store (atomic publish); the transforms below build
+            # fresh arrays and never write the payload's
+            factor_cache.save_async(key, n=np.int64(n), **payload)
         t0 = time.perf_counter()
         # penalty-DP regrouping of each depth's nodes, then the nodes of
         # every stage sorted by inbox load (segmented inbox gathers)
-        payload = _repack_dp(payload, n, lam_bytes=self.LAM_BYTES)
-        payload = _sort_nodes_by_inbox_load(payload, n)
+        if self.pack == "dp":
+            payload = _repack_dp(payload, n, lam_bytes=self.lam_mb * 2**20)
+        if self.inbox == "split":
+            payload = _sort_nodes_by_inbox_load(payload, n)
         self.timings["repack"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         self.solve_err = _measure_solve_err(a_csr, payload, n)
@@ -300,28 +392,24 @@ class MultifrontalLU:
         logger.info("multifrontal: measured per-solve error %.2e (store dtype %s)",
                     self.solve_err, np_store.name)
         t0 = time.perf_counter()
-        tables = self._build_tables(payload)
+        host = self._host_layout(self._build_tables(payload), payload)
         self.timings["tables"] = time.perf_counter() - t0
-        self.recommended_refine = (
-            0 if 0 <= self.solve_err < self.ZERO_SWEEP_ERR
-            or np.dtype(np_store) == np.float64
-            else 1
-        )
         t0 = time.perf_counter()
-        self._finalize_device(tables, payload)
+        self._to_device(host)
         self.timings["upload"] = time.perf_counter() - t0
-        self.timings["total"] = time.perf_counter() - t_all
-        logger.info("multifrontal: ready in %.1fs — %d stages, factor %.3f GB",
-                    self.timings["total"], self.n_depths, self.factor_bytes / 1e9)
+        # background store (atomic; the device holds copies of these arrays)
+        factor_cache.save_async(self.derived_key, n=np.int64(n),
+                                solve_err=np.float64(self.solve_err), **host)
 
     # ── host factorization ──────────────────────────────────────────────────
 
     @staticmethod
-    def _factorize(a_csr, coords, leaf_max, np_store):
+    def _factorize(a_csr, coords, leaf_max, np_store, trim: bool = True):
         n = a_csr.shape[0]
         t0 = time.time()
         g = ((a_csr != 0) + (a_csr != 0).T).tocsr()
-        root = build_nd_tree(g, coords, np.arange(n), leaf_max=leaf_max)
+        root = build_nd_tree(g, coords, np.arange(n), leaf_max=leaf_max,
+                             trim_passes=4 if trim else 0)
         _merge_small_nodes(root)
         _set_depths(root)
         _annotate_boundaries(g, root)
@@ -553,7 +641,10 @@ class MultifrontalLU:
             dloc = np.where((dest >= off) & (dloc < width), dloc, width)
             cnt = np.bincount(dloc[dloc < width], minlength=width)
             node_load = cnt.reshape(m_d, e_max_d).max(axis=1)
-            segs = _inbox_segments(node_load)
+            if self.inbox == "split":
+                segs = _inbox_segments(node_load)
+            else:
+                segs = [(0, m_d, max(int(node_load.max(initial=0)), 1))]
             inbox_ts = []
             seg_static = []
             for (m0, m1, kcap) in segs:
@@ -593,42 +684,35 @@ class MultifrontalLU:
         )
         return tables
 
-    def _finalize_device(self, tables, payload):
-        """Put the permutations, the index tables and the payload's factor
-        stacks (one layout, the canonical one) on ``self.device``.
+    def _host_layout(self, tables, payload) -> dict:
+        """The device layout on the host: every array :meth:`_to_device`
+        uploads, as numpy, and ``meta_json`` (the stages' shapes and
+        offsets, P1's launches): the derived cache entry.
 
-        Every stage's ``inv``, ``ginv`` and ``fbi`` is a view of one flat
-        float allocation (``flat_stacks``), its ``bd`` a view of one flat
-        int64 table (``flat_bd``) and its inbox tables views of one flat
-        int32 table (``flat_inbox``): the per-stage sweep and kernel F read
-        the same bytes. ``desc`` is F's stage descriptor array
-        (``ops/mf_fused.py``: ``STAGE_WORDS`` int64 words per stage).
+        Every stage's ``inv``, ``ginv`` and ``fbi`` lie in one flat float
+        array (``flat_stacks``: each stack aligned to 64 floats, so each
+        starts 256-byte aligned; the stages one after the other), its ``bd``
+        in one flat int64 table (``flat_bd``) and its inbox tables in one
+        flat int32 table (``flat_inbox``): the per-stage sweep and kernel F
+        read the same bytes. ``desc`` is F's stage descriptor array
+        (``ops/mf_fused.py``: ``STAGE_WORDS`` int64 words per stage). A leaf
+        stage (no stage's bd holds one of its slots) can hold a tabbed inbox
+        segment only under ``inbox='full'``, and then one of pads alone: F's
+        leaf phase reads no inbox, and the per-stage sweep's sums it to 0.
 
         The per-stage sweep's P1 launches read ``p1_desc`` (their segment
         descriptors, ``ops/mf_matvec.gather_descriptors``), the inbox tables
         and ``p1_tables``: int32 copies of the entry permutation over the
         work vector's ``work_slots`` slots (pads -> n, read as zero), of
         ``ipos`` and of every stage's ``bd``, each 16-byte aligned."""
-        dev = self.device
-        self.n_depths = int(tables["n_depths"])
-        self.total_slots = int(tables["total"])
-        self.total_contrib = int(tables["total_contrib"])
-
-        def idx(a, dt=torch.int64):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
-
-        # slot -> dof, with one more slot (-> n) for the work vector's
-        # trailing zero
-        self.perm = idx(np.append(tables["perm"], self.n))
-        self.ipos = idx(tables["ipos"])
-
-        # host layout of the flat arrays: element offsets of every piece
-        # (stacks aligned to 64 floats, so each starts 256-byte aligned)
-        statics = []
+        n, total = self.n, int(tables["total"])
+        stages = []
         n_stack = n_bd = n_inbox = 0
-        for di, (st_h, stat) in enumerate(zip(tables["stages"], tables["static"])):
+        for st_h, stat in zip(tables["stages"], tables["static"]):
             e, b, m, off, c_off = (int(v) for v in stat[:5])
-            segs = tuple((int(m0), int(m1), bool(f)) for (m0, m1, f) in stat[5])
+            segs = [(int(m0), int(m1), bool(f)) for (m0, m1, f) in stat[5]]
+            if len(segs) > MAX_SEGS:
+                raise ValueError(f"a stage has {len(segs)} inbox segments, F takes {MAX_SEGS}")
             o_stack = []
             for size in (m * e * e, m * e * b, m * b * e):  # inv, ginv, fbi
                 o_stack.append(n_stack)
@@ -636,105 +720,136 @@ class MultifrontalLU:
             o_bd, n_bd = n_bd, n_bd + m * b
             seg_rec, ti = [], 0
             for (m0, m1, tabbed) in segs:
-                kmax = 0
-                o_ib = 0
+                kmax = o_ib = 0
                 if tabbed:
                     # the host table has one trailing column for the
                     # segment's pad row; the sweep reads the first (m1-m0)·e
-                    kmax = st_h["inbox_ts"][ti].shape[0]
+                    kmax = int(st_h["inbox_ts"][ti].shape[0])
                     o_ib, n_inbox = n_inbox, n_inbox + kmax * (m1 - m0) * e
                     ti += 1
                 seg_rec.append((m0, m1, int(tabbed), o_ib, kmax))
-            statics.append((e, b, m, off, c_off, segs, o_stack, o_bd, seg_rec))
-        dt = self.dtype
-        self.flat_stacks = torch.zeros(n_stack, dtype=dt, device=dev)
-        self.flat_bd = torch.empty(n_bd, dtype=torch.int64, device=dev)
-        self.flat_inbox = torch.empty(n_inbox, dtype=torch.int32, device=dev)
-
-        desc = np.zeros((self.n_depths, STAGE_WORDS), dtype=np.int64)
+            stages.append(dict(e=e, b=b, m=m, off=off, c_off=c_off, segs=segs, stack=o_stack,
+                               bd=o_bd, seg_rec=seg_rec))
+        flat_stacks = np.zeros(n_stack, dtype=payload["inv_0"].dtype)
+        flat_bd = np.empty(n_bd, dtype=np.int64)
+        flat_inbox = np.empty(n_inbox, dtype=np.int32)
+        desc = np.zeros((len(stages), STAGE_WORDS), dtype=np.int64)
         # slots some stage's bd holds (the trailing pad slot aside): a stage
         # with none of them is a leaf stage for kernel F
-        held = np.zeros(self.total_slots + 1, dtype=bool)
+        held = np.zeros(total + 1, dtype=bool)
         for st_h in tables["stages"]:
             held[st_h["bd"]] = True
-        held[self.total_slots] = False
-        self.stages: list[MFStage] = []
-        for di, (st_h, s) in enumerate(zip(tables["stages"], statics)):
-            e, b, m, off, c_off, segs, o_stack, o_bd, seg_rec = s
-            if len(seg_rec) > MAX_SEGS:
-                raise ValueError(f"stage {di} has {len(seg_rec)} inbox segments, F takes "
-                                 f"{MAX_SEGS}")
-            views = []
-            for o, name, shape in zip(o_stack, ("inv", "ginv", "fbi"),
-                                      ((m, e, e), (m, e, b), (m, b, e))):
-                v = self.flat_stacks[o: o + m * shape[1] * shape[2]].view(shape)
-                v.copy_(torch.as_tensor(payload[f"{name}_{di}"]))
-                views.append(v)
-            bd = self.flat_bd[o_bd: o_bd + m * b].view(m, b)
-            bd.copy_(torch.as_tensor(st_h["bd"].astype(np.int64)))
-            inbox, ti = [], 0
-            for (m0, m1, tabbed, o_ib, kmax) in seg_rec:
+        held[total] = False
+        for di, (st_h, s) in enumerate(zip(tables["stages"], stages)):
+            e, b, m, off = s["e"], s["b"], s["m"], s["off"]
+            for o, name, size in zip(s["stack"], ("inv", "ginv", "fbi"),
+                                     (m * e * e, m * e * b, m * b * e)):
+                flat_stacks[o: o + size] = payload[f"{name}_{di}"].reshape(-1)
+            flat_bd[s["bd"]: s["bd"] + m * b] = st_h["bd"].reshape(-1)
+            pads_only, ti = True, 0
+            for (m0, m1, tabbed, o_ib, kmax) in s["seg_rec"]:
                 if tabbed:
-                    ln = (m1 - m0) * e
-                    t = self.flat_inbox[o_ib: o_ib + kmax * ln].view(kmax, ln)
-                    t.copy_(torch.as_tensor(
-                        np.ascontiguousarray(st_h["inbox_ts"][ti][:, :ln]).astype(np.int32)))
-                    inbox.append(t)
+                    t = st_h["inbox_ts"][ti][:, : (m1 - m0) * e]
+                    flat_inbox[o_ib: o_ib + t.size] = t.reshape(-1)
+                    pads_only &= not t.any()
                     ti += 1
-            n_bd = int((st_h["bd"] < self.total_slots).sum())
             leaf = int(not held[off: off + m * e].any())
-            if leaf and any(tabbed for (_, _, tabbed) in segs):
+            if leaf and not pads_only:
                 raise AssertionError(f"stage {di} receives inbox sums but no bd holds its slots")
-            desc[di, : len(HEAD_FIELDS)] = (e, b, m, off, c_off, *o_stack, o_bd, n_bd, leaf,
-                                            len(seg_rec))
-            for k, rec in enumerate(seg_rec):
+            n_real_bd = int((st_h["bd"] < total).sum())
+            desc[di, : len(HEAD_FIELDS)] = (e, b, m, off, s["c_off"], *s["stack"], s["bd"],
+                                            n_real_bd, leaf, len(s["seg_rec"]))
+            for k, rec in enumerate(s["seg_rec"]):
                 base = len(HEAD_FIELDS) + k * len(SEG_FIELDS)
                 desc[di, base: base + len(SEG_FIELDS)] = rec
-            self.stages.append(MFStage(
-                e=e, b=b, m=m, off=off, c_off=c_off, segs=segs,
-                inv=views[0], ginv=views[1], fbi=views[2], bd=bd, inbox=tuple(inbox),
-            ))
-        self.desc = idx(desc)
-        #: the largest front or boundary of any stage (a multiple of 8): the
-        #: length of one node's vector, which kernel F stages in shared memory
-        self.max_front = max(max(s.e, s.b) for s in self.stages)
-        self._finalize_p1(tables, statics)
 
-    def _finalize_p1(self, tables, statics):
-        """The per-stage sweep's P1 launches (see :meth:`_finalize_device`)."""
-        dev, n, total = self.device, self.n, self.total_slots
-        #: slots of one row of the sweep's work vectors: the stage slots, the
-        #: trailing zero slot the boundary pads read, rounded up to 4 floats
-        #: (K2's wide instance then copies stage slices in 16-byte pieces)
-        self.work_slots = -(-(total + 1) // 4) * 4
-        pieces = [np.concatenate([tables["perm"], np.full(self.work_slots - total, n)]),
+        # P1: slots of one row of the sweep's work vectors: the stage slots,
+        # the trailing zero slot the boundary pads read, rounded up to 4
+        # floats (K2's wide instance then copies stage slices in 16-byte
+        # pieces)
+        work_slots = -(-(total + 1) // 4) * 4
+        pieces = [np.concatenate([tables["perm"], np.full(work_slots - total, n)]),
                   tables["ipos"]] + [st_h["bd"].reshape(-1) for st_h in tables["stages"]]
         offs, n_tab = [], 0
         for a in pieces:
             offs.append(n_tab)
             n_tab += -(-len(a) // 4) * 4
-        host = np.zeros(n_tab, dtype=np.int32)
+        p1_tables = np.zeros(n_tab, dtype=np.int32)
         for o, a in zip(offs, pieces):
-            host[o: o + len(a)] = a
-        self.p1_tables = torch.as_tensor(host, device=dev)
+            p1_tables[o: o + len(a)] = a
+        # the segments and the inbox form of every launch, then one
+        # descriptor array for all of them
+        launches = [dict(segs=[(0, work_slots, 1, 0)], inbox=False),
+                    dict(segs=[(0, n, 1, offs[1])], inbox=False)]
+        for di, s in enumerate(stages):
+            launches.append(dict(segs=[(0, s["m"] * s["b"], 1, offs[2 + di])], inbox=False))
+            inbox = [(m0 * s["e"], (m1 - m0) * s["e"], kmax, o_ib)
+                     for (m0, m1, tabbed, o_ib, kmax) in s["seg_rec"] if tabbed]
+            if inbox:
+                launches.append(dict(segs=inbox, inbox=True))
+        rows = [gather_descriptors(launch["segs"]) for launch in launches]
+        for launch, (_, tiles) in zip(launches, rows):
+            launch["tiles"] = tiles
+        meta = dict(total=total, total_contrib=int(tables["total_contrib"]),
+                    work_slots=work_slots, stages=stages, p1=launches, p1_offs=offs)
+        return {
+            "meta_json": np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8).copy(),
+            # slot -> dof, with one more slot (-> n) for the work vector's
+            # trailing zero
+            "perm": np.append(tables["perm"], n).astype(np.int64),
+            "ipos": np.asarray(tables["ipos"], dtype=np.int64),
+            "flat_bd": flat_bd, "flat_inbox": flat_inbox, "desc": desc,
+            "p1_tables": p1_tables, "p1_desc": np.concatenate([r for r, _ in rows]),
+            "flat_stacks": flat_stacks,
+        }
+
+    def _to_device(self, host: dict, flat_stacks: torch.Tensor | None = None) -> None:
+        """Put :meth:`_host_layout`'s arrays on ``self.device`` and make the
+        stages' views and P1's plans over them; ``flat_stacks``, where
+        given, is the stacks already on the device (the streaming load)."""
+        dev, n = self.device, self.n
+        meta = json.loads(bytes(host["meta_json"]).decode())
+
+        def put(a):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(dev, copy=True)
+
+        self.n_depths = len(meta["stages"])
+        self.total_slots = meta["total"]
+        self.total_contrib = meta["total_contrib"]
+        self.work_slots = meta["work_slots"]
+        self.perm, self.ipos = put(host["perm"]), put(host["ipos"])
+        self.flat_stacks = put(host["flat_stacks"]) if flat_stacks is None else flat_stacks
+        if self.flat_stacks.dtype != self.dtype:
+            raise ValueError(f"the factor stacks are {self.flat_stacks.dtype}, not {self.dtype}")
+        self.flat_bd, self.flat_inbox = put(host["flat_bd"]), put(host["flat_inbox"])
+        self.desc = put(host["desc"])
+        self.p1_tables, self.p1_desc = put(host["p1_tables"]), put(host["p1_desc"])
+        self.stages: list[MFStage] = []
+        for s in meta["stages"]:
+            e, b, m = s["e"], s["b"], s["m"]
+            views = [self.flat_stacks[o: o + m * p * q].view(m, p, q)
+                     for o, (p, q) in zip(s["stack"], ((e, e), (e, b), (b, e)))]
+            inbox = tuple(self.flat_inbox[o_ib: o_ib + kmax * (m1 - m0) * e].view(kmax, (m1 - m0) * e)
+                          for (m0, m1, tabbed, o_ib, kmax) in s["seg_rec"] if tabbed)
+            self.stages.append(MFStage(
+                e=e, b=b, m=m, off=s["off"], c_off=s["c_off"],
+                segs=tuple((m0, m1, bool(t)) for (m0, m1, t) in s["segs"]),
+                inv=views[0], ginv=views[1], fbi=views[2],
+                bd=self.flat_bd[s["bd"]: s["bd"] + m * b].view(m, b), inbox=inbox,
+            ))
+        #: the largest front or boundary of any stage (a multiple of 8): the
+        #: length of one node's vector, which kernel F stages in shared memory
+        self.max_front = max(max(s.e, s.b) for s in self.stages)
+        offs = meta["p1_offs"]
         self.perm32 = self.p1_tables[: self.work_slots]
         self.ipos32 = self.p1_tables[offs[1]: offs[1] + n]
-        # (segments, tables, inbox form) of every launch, then one descriptor
-        # array for all of them
-        launches = [([(0, self.work_slots, 1, 0)], self.p1_tables, False),
-                    ([(0, n, 1, offs[1])], self.p1_tables, False)]
-        for di, (e, b, m, *_, seg_rec) in enumerate(statics):
-            launches.append(([(0, m * b, 1, offs[2 + di])], self.p1_tables, False))
-            inbox = [(m0 * e, (m1 - m0) * e, kmax, o_ib)
-                     for (m0, m1, tabbed, o_ib, kmax) in seg_rec if tabbed]
-            if inbox:
-                launches.append((inbox, self.flat_inbox, True))
-        rows = [gather_descriptors(segs) for segs, _, _ in launches]
-        self.p1_desc = torch.as_tensor(np.concatenate([r for r, _ in rows]), device=dev)
         plans, r0 = [], 0
-        for (segs, flat, sub), (r, tiles) in zip(launches, rows):
-            plans.append(GatherPlan(desc=self.p1_desc[r0: r0 + len(segs)], tables=flat,
-                                    segs=tuple(segs), sub=sub, n_tiles=tiles))
+        for launch in meta["p1"]:
+            segs = tuple(tuple(sg) for sg in launch["segs"])
+            plans.append(GatherPlan(
+                desc=self.p1_desc[r0: r0 + len(segs)],
+                tables=self.flat_inbox if launch["inbox"] else self.p1_tables,
+                segs=segs, sub=launch["inbox"], n_tiles=launch["tiles"]))
             r0 += len(segs)
         self.p1_entry, self.p1_exit = plans[0], plans[1]
         it = iter(plans[2:])
@@ -742,6 +857,52 @@ class MultifrontalLU:
             st.p1_bd = next(it)
             st.bd32 = self.p1_tables[offs[2 + di]: offs[2 + di] + st.m * st.b].view(st.m, st.b)
             st.p1_inbox = next(it) if st.inbox else None
+
+    def _load_derived_streaming(self, p) -> None:
+        """The warm load of the derived entry in directory ``p``: the small
+        arrays by ``np.load``, then the flat stacks stage by stage (in
+        pieces of at most ``STREAM_CHUNK_BYTES``). On CUDA each piece is read
+        from the file into one of two pinned staging buffers and copied to
+        the card asynchronously, so the next read overlaps the copy in
+        flight; a buffer is reused once its copy has finished. On the CPU
+        the pieces are read into place. Raises on an entry that does not fit
+        this factor."""
+        def ld(name):
+            return np.load(p / f"{name}.npy", allow_pickle=False)
+
+        if int(ld("n")) != self.n:
+            raise ValueError("derived cache entry is for a different n")
+        host = {k: ld(k) for k in ("meta_json", "perm", "ipos", "flat_bd", "flat_inbox",
+                                   "desc", "p1_tables", "p1_desc")}
+        solve_err = float(ld("solve_err"))
+        src = np.load(p / "flat_stacks.npy", mmap_mode="r", allow_pickle=False)
+        if src.dtype != np.dtype(str(self.dtype).removeprefix("torch.")):
+            raise ValueError(f"derived cache entry holds {src.dtype} stacks")
+        meta = json.loads(bytes(host["meta_json"]).decode())
+        bounds = [s["stack"][0] for s in meta["stages"]] + [src.shape[0]]
+        chunk = STREAM_CHUNK_BYTES // src.itemsize
+        pieces = [(a, min(b, a + chunk)) for lo, b in zip(bounds[:-1], bounds[1:])
+                  for a in range(lo, b, chunk)]
+        stacks = torch.empty(src.shape[0], dtype=self.dtype, device=self.device)
+        if self.device.type == "cuda":
+            cap = max(b - a for a, b in pieces)
+            staging = [torch.empty(cap, dtype=self.dtype, pin_memory=True) for _ in range(2)]
+            copied = [None, None]
+            for i, (a, b) in enumerate(pieces):
+                k = i % 2
+                if copied[k] is not None:
+                    copied[k].synchronize()
+                staging[k].numpy()[: b - a] = src[a:b]  # the file read
+                stacks[a:b].copy_(staging[k][: b - a], non_blocking=True)
+                copied[k] = torch.cuda.Event()
+                copied[k].record()
+            torch.cuda.current_stream(self.device).synchronize()
+        else:
+            out = stacks.numpy()
+            for a, b in pieces:
+                out[a:b] = src[a:b]
+        self._to_device(host, flat_stacks=stacks)
+        self.solve_err = solve_err
 
     # ── public API ──────────────────────────────────────────────────────────
 

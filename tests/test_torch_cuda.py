@@ -113,6 +113,15 @@ package, so it also runs on a GPU machine without them:
   tolerance) and ``get_frequency_response_device`` the same way (2e-4
   relative), the refined answer and the unrefined one (``stats``). Without
   a card both raise rather than run on the CPU (a CPU test, unmarked).
+- The Krylov backend: the JAX package's GMRES fixture (the lid cavity at
+  ``n_mesh=12``, Re=500, 5 steps) on the card (an f32 step, its Krylov
+  solve in f64) against the port's f64 GMRES on the CPU: field and y
+  within 5e-4.
+- The factor cache: a small cavity's factor built cold on the card, then
+  streamed back from its derived entry: every device array and the F and
+  sweep solves bitwise equal. The knobs ``inbox='full'``,
+  ``FC_MF_PACK=bucket`` and ``trim=False``: F (rows 1, 8) and the sweep
+  (B = 64) within 1e-5 of F's plain walk.
 """
 
 import numpy as np
@@ -174,6 +183,16 @@ FLOWS = {"cylinder": (CylinderFlowSolver, 100, {}), "cavity": (CavityFlowSolver,
          "lidcavity": (LidCavityFlowSolver, 1000, {}),
          "pinball": (PinballFlowSolver, 30,
                      {"mode_actuation": CYLINDER_ACTUATION_MODE.ROTATION})}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _factor_cache_off():
+    """The port's multifrontal factors here are built cold and stored
+    nowhere: the factor cache is off for the module (its own tests are in
+    tests/test_torch_factor_cache.py)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", "off")
+        yield
 
 
 @pytest.fixture
@@ -1382,3 +1401,98 @@ def test_torch_analysis_device_functions_raise_without_card(monkeypatch):
         eig_arnoldi_dense_device(a, e, n=2, sigma=0.1 + 0.8j, n_krylov=10)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_frequency_response_device(a, b, c, e, [1.0])
+
+
+def _lid_krylov(base, tmp_path, device, **kw):
+    """The JAX package's Krylov fixture (the lid cavity at n_mesh=12,
+    Re=500) on the port: 5 GMRES steps from the base flow with its initial
+    perturbation, zero control."""
+    fs = LidCavityFlowSolver.make_default(Re=500, num_steps=5, n_mesh=12, path_out=tmp_path,
+                                          solver_backend="gmres", device=device, **kw)
+    fs._assign_steady_state(*base)
+    fs.initialize_time_stepping()
+    ys = np.asarray([fs.step(np.zeros(1)) for _ in range(5)])
+    return fs, ys, np.asarray(fs.fields.up_, dtype=float)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_gmres_step_matches_cpu(cuda, tmp_path):
+    """The GMRES step on the card (an f32 step, its Krylov solve in f64)
+    against the port's f64 GMRES step on the CPU: field within 5e-4
+    relative, y within 5e-4 of the f64 run's peak; every step's residual
+    measured and at most krylov_rtol, K1 once a step; the compiled step is
+    the eager one."""
+    ref = LidCavityFlowSolver.make_default(Re=500, n_mesh=12, path_out=tmp_path / "b",
+                                           device="cpu", precision="f64",
+                                           solver_backend="host_lu")
+    ref.compute_steady_state(u_ctrl=[0.0], method="picard", max_iter=4)
+    ref.compute_steady_state(u_ctrl=[0.0], method="newton", initial_guess=ref.fields.UP0,
+                             max_iter=10)
+    base = (ref.fields.U0, ref.fields.P0)
+    f64, y64, x64 = _lid_krylov(base, tmp_path / "c", "cpu", precision="f64")
+    before = nonlinear_convection.launches
+    f32, y32, x32 = _lid_krylov(base, tmp_path / "g", "cuda")
+    st = f32.stepper
+    assert st.dtype == torch.float32 and st._solver_kinds == ["gmres", "gmres"]
+    assert nonlinear_convection.launches - before == 5 + 1  # and init_carry's
+    assert f32._step_compiled == st.step and 0.0 <= f32.last_solve_res <= st.krylov_rtol
+    err = np.linalg.norm(x32 - x64) / np.linalg.norm(x64)
+    print(f"GMRES f32 card vs f64 CPU: field {err:.3e}, y {np.abs(y32 - y64).max():.3e}, "
+          f"res {f32.last_solve_res:.3e}, cycles {st.krylov_cycles}")
+    assert err <= 5e-4
+    assert np.abs(y32 - y64).max() <= 5e-4 * np.abs(y64).max()
+
+
+def _cavity_system(tmp_path):
+    fs = CavityFlowSolver.make_default(mesh=cavity_mesh(n_coarse=4, n_mid=8, n_fine=16),
+                                       device="cpu", path_out=tmp_path)
+    lhs = fs.forms.transient_lhs(2, fs._default_steady_state_initial_guess())
+    a_bc, _ = fs._bcset_perturbation().eliminate_csr(
+        to_scipy_csr(lhs, fs.space.cell_dofs, fs.space.n_dofs))
+    return a_bc, mixed_dof_coordinates(fs.space)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_factor_cache_stream_bitwise(cuda, tmp_path, monkeypatch):
+    """A small cavity's factor (f32) built cold on the card with the cache
+    in a new directory, then streamed back from its derived entry through
+    pinned staging buffers (pieces smaller than a stage, so the two buffers
+    take turns): every device array bitwise equal, and F's solve (rows 1)
+    and the per-stage sweep's (B = 64) bitwise equal."""
+    from flowcontrol_tpu_torch.solvers import factor_cache
+    from flowcontrol_tpu_torch.solvers import multifrontal as mf_module
+
+    a_bc, coords = _cavity_system(tmp_path / "s")
+    monkeypatch.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", str(tmp_path / "cache"))
+    cold = MultifrontalLU(a_bc, coords, cuda, dtype=torch.float32, leaf_max=300)
+    factor_cache.flush()
+    monkeypatch.setattr(mf_module, "STREAM_CHUNK_BYTES", 1 << 16)
+    warm = MultifrontalLU(a_bc, coords, cuda, dtype=torch.float32, leaf_max=300)
+    assert (cold.loaded_from, warm.loaded_from) == ("build", "stream")
+    for k in ("perm", "ipos", "flat_stacks", "flat_bd", "flat_inbox", "desc", "p1_tables",
+              "p1_desc"):
+        assert torch.equal(getattr(warm, k), getattr(cold, k)), k
+    assert warm.solve_err == cold.solve_err
+    rng = np.random.default_rng(0)
+    for rows in (1, 64):
+        b = torch.as_tensor(rng.standard_normal((rows, cold.n)), dtype=torch.float32, device=cuda)
+        assert torch.equal(warm.solve(b), cold.solve(b)), rows
+
+
+@pytest.mark.cuda
+def test_torch_cuda_mf_knobs_match_plain(cuda, tmp_path, monkeypatch):
+    """The knobs inbox='full', FC_MF_PACK=bucket and trim=False on a small
+    cavity's factor (f32): F (rows 1 and 8) and the per-stage sweep
+    (B = 64) within 1e-5 of F's plain descriptor walk."""
+    a_bc, coords = _cavity_system(tmp_path)
+    monkeypatch.setenv("FC_MF_PACK", "bucket")
+    mf = MultifrontalLU(a_bc, coords, cuda, dtype=torch.float32, leaf_max=300, inbox="full",
+                        trim=False)
+    assert all(len(s.segs) == 1 for s in mf.stages)
+    rng = np.random.default_rng(1)
+    for rows in (1, 8, 64):
+        b = torch.as_tensor(rng.standard_normal((rows, mf.n)), dtype=torch.float32, device=cuda)
+        got = (mf_fused.multifrontal_solve_fused(mf, b) if rows <= 8
+               else multifrontal_solve(mf, b))
+        want = mf_fused.multifrontal_solve_fused_plain(mf, b)
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5, rows

@@ -53,6 +53,16 @@ FLOWS = {"cylinder": (lambda tmp: CylinderFlowSolver.make_default(
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _factor_cache_off():
+    """The port's multifrontal factors here are built cold and stored
+    nowhere: the factor cache is off for the module (its own tests are in
+    tests/test_torch_factor_cache.py)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", "off")
+        yield
+
+
 @pytest.fixture(scope="module")
 def systems(tmp_path_factory):
     """{flow: (a_bc, coords, leaf_max)}: the BDF2 matrix around the default

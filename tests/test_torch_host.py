@@ -173,16 +173,20 @@ def test_torch_mesh_matches_committed_file():
 
 
 def test_torch_import_leaves_jax_out():
+    """Every module of the port (found by walking the package) and
+    ``chip_smoke`` import neither JAX nor the JAX package."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import flowcontrol_tpu_torch\n"
-        "import flowcontrol_tpu_torch.models.cylinder\n"
-        "import flowcontrol_tpu_torch.core.stepper\n"
-        "import flowcontrol_tpu_torch.ops.nl\n"
-        "import flowcontrol_tpu_torch.ops.trisolve\n"
-        "import flowcontrol_tpu_torch.solvers.block_lu\n"
-        "import flowcontrol_tpu_torch.core.controller\n"
+        "names = [m.name for m in pkgutil.walk_packages(flowcontrol_tpu_torch.__path__,\n"
+        "                                               'flowcontrol_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "assert {'flowcontrol_tpu_torch.solvers.krylov',\n"
+        "        'flowcontrol_tpu_torch.solvers.factor_cache',\n"
+        "        'flowcontrol_tpu_torch.examples.synthesize_controller'} <= set(names), names\n"
+        "assert len(names) >= 70, len(names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flowcontrol_tpu' or m.startswith('flowcontrol_tpu.'))\n"
         "assert not bad, bad\n"

@@ -45,6 +45,16 @@ FLOWS = {
 LEAF = 300
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _factor_cache_off():
+    """The port's multifrontal factors here are built cold and stored
+    nowhere: the factor cache is off for the module (its own tests are in
+    tests/test_torch_factor_cache.py)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", "off")
+        yield
+
+
 @pytest.fixture(scope="module")
 def factors(tmp_path_factory):
     """{flow: the port's f64 MultifrontalLU}, built on use."""

@@ -50,6 +50,16 @@ DTYPES = {"f32": (jnp.float32, torch.float32, np.float32),
           "f64": (jnp.float64, torch.float64, np.float64)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _factor_cache_off():
+    """The port's multifrontal factors here are built cold and stored
+    nowhere: the factor cache is off for the module (its own tests are in
+    tests/test_torch_factor_cache.py)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", "off")
+        yield
+
+
 @pytest.fixture(scope="module")
 def bdf2_system(tmp_path_factory):
     """(a_bc, coords) of the coarse cylinder's BDF2 matrix."""

@@ -68,6 +68,16 @@ K_MATS = dict(A=np.array([[-2.0, 1.0], [0.0, -3.0]]), B=np.array([[0.5], [1.0]])
 CARRY_FIELDS = ("u_n", "u_nn", "mu_n", "mu_nn", "n_prev", "u_ctrl_prev")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _factor_cache_off():
+    """The port's multifrontal factors here are built cold and stored
+    nowhere: the factor cache is off for the module (its own tests are in
+    tests/test_torch_factor_cache.py)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", "off")
+        yield
+
+
 def _rel(a, b):
     a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)

@@ -43,6 +43,16 @@ TOL = 1e-10
 CARRY_FIELDS = ("u_n", "u_nn", "mu_n", "mu_nn", "n_prev", "u_ctrl_prev")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _factor_cache_off():
+    """The port's multifrontal factors here are built cold and stored
+    nowhere: the factor cache is off for the module (its own tests are in
+    tests/test_torch_factor_cache.py)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", "off")
+        yield
+
+
 @pytest.fixture(scope="module")
 def base_flow(tmp_path_factory):
     fj = CylJ.make_default(

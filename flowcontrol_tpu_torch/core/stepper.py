@@ -50,6 +50,14 @@ host decides is not captured). ``StepOutput.res`` is that residual, always
 measured on the Krylov backends, and -1.0 on the direct ones unless
 ``measure_residual``. The substructured solves are a later slice
 (ROADMAP.md).
+
+``parallel/sharding.shard_stepper`` re-routes a Stepper over process groups
+through its hooks: ``_apply_hook`` (the mass and CN applies), ``_nl_hook``
+(N(u)), the solver objects in ``_solvers`` (a multifrontal kind's sharded
+solve, the Krylov backends' sharded operator) and ``_groups`` (the space
+and batch groups; the Krylov inner products span the batch group, and its
+cycle test both). A sharded Stepper's compiled entry points run their
+bodies eagerly.
 """
 
 from __future__ import annotations
@@ -396,6 +404,13 @@ class Stepper:
         self._graph_stream = self._graph_pool = None
         #: cycles the last Krylov solve ran, and all Krylov solves so far
         self.last_krylov_cycles = self.krylov_cycles = 0
+        #: hooks of parallel/sharding.shard_stepper: the element applies
+        #: (key 'm' or 'lvel'), N(u), and the (space, batch) process groups
+        #: (None: one card)
+        self._apply_hook = None
+        self._nl_hook = None
+        self._groups = (None, None)
+        self._sharded = False
 
     # ── Step math ────────────────────────────────────────────────────────────
 
@@ -405,12 +420,20 @@ class Stepper:
             a = np.asarray(a)
         return torch.as_tensor(a, dtype=self.dtype, device=self.device)
 
+    def _apply(self, key: str, x: torch.Tensor) -> torch.Tensor:
+        """The mass ('m') or CN velocity operator ('lvel') applied to x."""
+        if self._apply_hook is not None:
+            return self._apply_hook(key, x)
+        return sparse_matvec(self._dev[key], x)
+
     def _mass(self, x: torch.Tensor) -> torch.Tensor:
-        return sparse_matvec(self._dev["m"], x)
+        return self._apply("m", x)
 
     def _nl(self, x: torch.Tensor) -> torch.Tensor:
         if self._dev["nl"] is None:
             return torch.zeros_like(x)
+        if self._nl_hook is not None:
+            return self._nl_hook(x)
         return nonlinear_convection(self._dev["nl"], x)
 
     def _rhs(self, order, carry: StepCarry, u_ctrl, nl_n):
@@ -425,7 +448,7 @@ class Stepper:
         if c["c_nl_nn"]:
             rhs = rhs + c["c_nl_nn"] * carry.n_prev
         if c["c_lvel"]:
-            rhs = rhs + c["c_lvel"] * sparse_matvec(d["lvel"], carry.u_n)
+            rhs = rhs + c["c_lvel"] * self._apply("lvel", carry.u_n)
         g = d["bc_values"]
         if self.n_act:
             f_amp = c["c_f"] * u_ctrl + c["c_fn"] * carry.u_ctrl_prev
@@ -475,6 +498,7 @@ class Stepper:
         op, pc = self._solvers[oi]
         b = rhs.to(torch.float64)
         bn = torch.clamp(torch.linalg.vector_norm(b, dim=-1), min=1e-30)
+        red = self._batch_sum if self._groups[1] is not None else None
 
         def resnorm(x):
             return torch.linalg.vector_norm(b - op.apply(x), dim=-1) / bn
@@ -482,20 +506,40 @@ class Stepper:
         def cycle(x):
             if self.backend == "gmres":
                 x, _ = gmres(op.apply, b, x0=x, M=pc.apply, tol=0.0,
-                             restart=self.gmres_iters, maxiter=self.gmres_iters)
+                             restart=self.gmres_iters, maxiter=self.gmres_iters, reduce=red)
             else:
                 x, _ = bicgstab(op.apply, b, x0=x, M=pc.apply, tol=0.0,
-                                maxiter=self.gmres_iters)
+                                maxiter=self.gmres_iters, reduce=red)
             return x
 
         x = cycle(x0.to(torch.float64))
         res, cycles = resnorm(x), 1
-        while cycles < self.krylov_max_cycles and bool((res > self.krylov_rtol).any()):
+        while cycles < self.krylov_max_cycles and self._any(res > self.krylov_rtol):
             x = cycle(x)
             res, cycles = resnorm(x), cycles + 1
         self.last_krylov_cycles = cycles
         self.krylov_cycles += cycles
         return x.to(rhs.dtype), res.to(rhs.dtype)
+
+    def _batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks of the batch group (a sharded
+        Krylov solve's inner products span the whole batch)."""
+        from flowcontrol_tpu_torch.parallel.comm import all_reduce_sum
+
+        return all_reduce_sum(t.clone(), self._groups[1])
+
+    def _any(self, flags: torch.Tensor) -> bool:
+        """Whether any member's flag is set, on every rank of a sharded
+        Stepper (so that all ranks take the same number of cycles)."""
+        if not self._sharded:
+            return bool(flags.any())
+        from flowcontrol_tpu_torch.parallel.comm import all_reduce_max
+
+        t = flags.any().to(torch.float64).reshape(1)
+        for g in self._groups:
+            if g is not None:
+                all_reduce_max(t, g)
+        return bool(t.item() > 0)
 
     def _solve_step(self, order, rhs, x_guess):
         """The step's solve: (x, res), the solution and its relative
@@ -625,12 +669,13 @@ class Stepper:
         (body, its fixed tensors) on first use."""
         prog = self._programs.get(key)
         if prog is None:
-            if self.device.type == "cuda" and not self._krylov and self._graph_stream is None:
+            if (self.device.type == "cuda" and not (self._krylov or self._sharded)
+                    and self._graph_stream is None):
                 self._graph_stream = torch.cuda.Stream(self.device)
                 self._graph_pool = torch.cuda.graph_pool_handle()
             body, fixed = make_body()
             prog = Program(body, self.device, self._graph_stream, self._graph_pool, fixed,
-                           graphed=not self._krylov)
+                           graphed=not (self._krylov or self._sharded))
             self._programs[key] = prog
         return prog
 
@@ -679,7 +724,7 @@ class Stepper:
 
     def _graphed_step(self, carry: StepCarry, u_ctrl) -> tuple[StepCarry, StepOutput]:
         u_ctrl = self._control(u_ctrl)
-        if carry.it == 0:
+        if carry.it == 0 or self._sharded:  # a sharded step's collectives are host calls
             return self.step(carry, u_ctrl)
         order = self._order_of(carry.it)
         s = self._static_carry(carry)

@@ -176,7 +176,10 @@ class NLTables:
     with nc*12 (pressure rows are all padding). patches: K1's host tables;
     patch_dev: the same on the device (int32) and ``geo``, the geometry in
     patch order, as K1 reads them. K1's calls with one NLTables run in the
-    order of one stream (they share its arrival counters).
+    order of one stream (they share its arrival counters). ``subset``: the
+    tables hold only some of the mesh's cells (a rank's share,
+    ``parallel/sharding.py``), so N(u) is zero at the nodes none of them
+    touches, and K1's output starts zeroed.
     """
 
     cell_vel_nodes: torch.Tensor
@@ -192,32 +195,40 @@ class NLTables:
     #: never replaced, since a CUDA graph that captured a K1 launch goes on
     #: using the set it captured
     arrivals: dict = field(default_factory=dict)
+    subset: bool = False
 
     @classmethod
     def build(cls, geom: CellGeometry, space: TaylorHoodSpace,
-              device: torch.device | str, dtype: torch.dtype) -> "NLTables":
+              device: torch.device | str, dtype: torch.dtype,
+              cells: np.ndarray | None = None) -> "NLTables":
+        """The tables of every cell, or of the cells ``cells`` (indices
+        into the mesh's cells) alone."""
         def f(a):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
         def i32(a):
             return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
-        table = build_gather_table(velocity_cell_dofs(space), space.n_dofs)
-        centroids = space.vel_node_coords[space.cell_vel_nodes[:, :3]].mean(axis=1)
-        patches = NLPatches.build(space.cell_vel_nodes, centroids, space.n_vnodes)
+        sel = slice(None) if cells is None else np.asarray(cells)
+        cvn = space.cell_vel_nodes[sel]
+        table = build_gather_table(velocity_cell_dofs(space)[sel], space.n_dofs)
+        centroids = space.vel_node_coords[cvn[:, :3]].mean(axis=1)
+        patches = NLPatches.build(cvn, centroids, space.n_vnodes)
+        dphi2, wq = np.asarray(geom.dphi2)[sel], np.asarray(geom.wq)[sel]
         patch_dev = {k: i32(getattr(patches, k)) for k in (
             "cell_loc", "nodes", "n_local", "slots", "dest", "halo_node", "halo_start",
             "slot_halo")}
-        patch_dev["geo"] = f(patches.geometry(geom.dphi2, geom.wq))
+        patch_dev["geo"] = f(patches.geometry(dphi2, wq))
         return cls(
-            cell_vel_nodes=i32(space.cell_vel_nodes),
-            dphi2=f(geom.dphi2),
-            wq=f(geom.wq),
+            cell_vel_nodes=i32(cvn),
+            dphi2=f(dphi2),
+            wq=f(wq),
             phi2=f(geom.phi2),
             gt_vel=i32(table),
             n_vnodes=space.n_vnodes,
             patches=patches,
             patch_dev=patch_dev,
+            subset=cells is not None,
         )
 
     @property
@@ -336,7 +347,8 @@ def _nonlinear_convection_cuda(t: NLTables, u: torch.Tensor) -> torch.Tensor:
         _check_table(name, pd[name], torch.int32, dev)
     u2 = u.reshape(-1, n).contiguous()
     b = u2.shape[0]
-    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    # K1 writes the nodes its patches touch and the pressure rows
+    out = (torch.zeros if t.subset else torch.empty)((b, n), dtype=torch.float32, device=dev)
     lib = NL_KERNEL.get()
     tile = sample_tile(b, pt.n_patches, lib.nl_samples_per_pass())
     n_halo, n_slots = len(pt.halo_node), len(pt.slot_halo)

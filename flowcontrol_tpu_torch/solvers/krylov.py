@@ -37,8 +37,13 @@ flowsolver.py:812-814) where no factor is kept:
 - :func:`fgmres` and :func:`fgmres_restarted`: the JAX package's
   right-preconditioned fixed-count FGMRES, ported as they are.
 
-The JAX package's ``HookedOperator`` (an SPMD-sharded apply) waits for the
-multi-GPU slice (ROADMAP.md).
+- :class:`HookedOperator`: an operator whose apply is a function built
+  elsewhere, the sharded apply of ``parallel/sharding.shard_stepper``. With
+  the batch split over a process group's ranks, ``gmres`` and ``bicgstab``
+  take ``reduce`` (an ``all_reduce`` over that group) and apply it to every
+  inner product and norm, so they span the whole global batch as the JAX
+  ones do under a ``batch`` mesh axis: the sharded batch stays one
+  block-diagonal system (ROADMAP.md, "Faults in the reference").
 """
 
 from __future__ import annotations
@@ -61,6 +66,17 @@ class CsrOperator:
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         return sparse_matvec(self.a, x)
+
+
+class HookedOperator:
+    """An operator whose ``apply`` is ``apply_fn``, built elsewhere (the
+    BC-masked sharded apply of ``parallel/sharding.shard_stepper``)."""
+
+    def __init__(self, apply_fn):
+        self._apply_fn = apply_fn
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return self._apply_fn(x)
 
 
 class SimplePreconditioner:
@@ -148,29 +164,34 @@ def build_simple_preconditioner(
 # ── GMRES and BiCGStab: jax.scipy.sparse.linalg (JAX 0.9.0) transcribed ────
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    """The 2-norm of the whole array (the JAX ``_norm``)."""
-    return torch.sqrt(torch.sum(x * x))
+def _identity(x):
+    return x
 
 
-def _vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _norm(x: torch.Tensor, red=_identity) -> torch.Tensor:
+    """The 2-norm of the whole array (the JAX ``_norm``); ``red`` sums a
+    partial sum over the ranks that hold the rest of the array."""
+    return torch.sqrt(red(torch.sum(x * x)))
+
+
+def _vdot(x: torch.Tensor, y: torch.Tensor, red=_identity) -> torch.Tensor:
     """The inner product of the two whole arrays (real)."""
-    return torch.dot(x.reshape(-1), y.reshape(-1))
+    return red(torch.dot(x.reshape(-1), y.reshape(-1)))
 
 
-def _safe_normalize(x: torch.Tensor, thresh=None):
+def _safe_normalize(x: torch.Tensor, thresh=None, red=_identity):
     """(x / ‖x‖, ‖x‖), or (0, 0) where ‖x‖ is not above ``thresh`` (by
     default the dtype's machine epsilon, an absolute threshold)."""
-    norm = _norm(x)
+    norm = _norm(x, red)
     if thresh is None:
         thresh = torch.finfo(x.dtype).eps
     use = norm > thresh
     return torch.where(use, x / norm, 0.0), torch.where(use, norm, 0.0)
 
 
-def _project(q_rows: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _project(q_rows: torch.Tensor, v: torch.Tensor, red=_identity) -> torch.Tensor:
     """Qᵀ v for the Krylov vectors stored as rows (k, ...) of ``q_rows``."""
-    return q_rows.reshape(q_rows.shape[0], -1) @ v.reshape(-1)
+    return red(q_rows.reshape(q_rows.shape[0], -1) @ v.reshape(-1))
 
 
 def _combine(q_rows: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -178,7 +199,7 @@ def _combine(q_rows: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return (h @ q_rows.reshape(q_rows.shape[0], -1)).reshape(q_rows.shape[1:])
 
 
-def _iterative_classical_gram_schmidt(q_rows, x):
+def _iterative_classical_gram_schmidt(q_rows, x, red=_identity):
     """Orthogonalize x against the rows of ``q_rows``: (q, r), r the overlaps.
 
     One classical Gram-Schmidt pass, as JAX 0.9.0's
@@ -186,19 +207,19 @@ def _iterative_classical_gram_schmidt(q_rows, x):
     its docstring speaks of "twice is enough", but its loop tests
     ``k < max_iterations - 1`` after the first pass has made ``k = 1``, so a
     second pass never runs."""
-    r = _project(q_rows, x)
+    r = _project(q_rows, x, red)
     return x - _combine(q_rows, r), r
 
 
-def _kth_arnoldi_iteration(k: int, A, M, V: torch.Tensor):
+def _kth_arnoldi_iteration(k: int, A, M, V: torch.Tensor, red=_identity):
     """The k'th Arnoldi step: (V's row k + 1, H's row k, breakdown) for the
     new vector M(A(V[k])) orthonormalized against V's rows. The caller
     writes them (or not, after a breakdown)."""
     eps = torch.finfo(V.dtype).eps
     v = M(A(V[k]))
-    _, v_norm_0 = _safe_normalize(v)
-    v, h = _iterative_classical_gram_schmidt(V, v)
-    unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0)
+    _, v_norm_0 = _safe_normalize(v, red=red)
+    v, h = _iterative_classical_gram_schmidt(V, v, red)
+    unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0, red=red)
     h[k + 1] = v_norm_1
     return unit_v, h, v_norm_1 == 0.0
 
@@ -213,7 +234,7 @@ def _lstsq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(b2[:, None], lower)[:, 0]
 
 
-def _gmres_batched(A, b, x0, unit_residual, residual_norm, restart: int, M):
+def _gmres_batched(A, b, x0, unit_residual, residual_norm, restart: int, M, red=_identity):
     """One restart of GMRES(restart), the JAX ``_gmres_batched``: ``restart``
     Arnoldi steps (none written after a breakdown), then the least squares
     problem solved from scratch. Returns (x, unit residual, its norm)."""
@@ -222,7 +243,7 @@ def _gmres_batched(A, b, x0, unit_residual, residual_norm, restart: int, M):
     H = torch.eye(restart, restart + 1, dtype=b.dtype, device=b.device)
     broken = None
     for k in range(restart):
-        unit_v, h, breakdown = _kth_arnoldi_iteration(k, A, M, V)
+        unit_v, h, breakdown = _kth_arnoldi_iteration(k, A, M, V, red)
         if broken is None:
             V[k + 1], H[k] = unit_v, h
             broken = breakdown
@@ -234,75 +255,77 @@ def _gmres_batched(A, b, x0, unit_residual, residual_norm, restart: int, M):
     beta_vec[0] = residual_norm
     y = _lstsq(H.T, beta_vec)
     x = x0 + _combine(V[:-1], y)
-    unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
+    unit_residual, residual_norm = _safe_normalize(M(b - A(x)), red=red)
     return x, unit_residual, residual_norm
 
 
-def _identity(x):
-    return x
-
-
 def gmres(A, b: torch.Tensor, x0: torch.Tensor | None = None, *, tol: float = 1e-5,
-          atol: float = 0.0, restart: int = 20, maxiter: int | None = None, M=None):
+          atol: float = 0.0, restart: int = 20, maxiter: int | None = None, M=None,
+          reduce=None):
     """GMRES for A x = b, as ``jax.scipy.sparse.linalg.gmres(...,
     solve_method='batched')``: up to ``maxiter`` restarts of ``restart``
     Arnoldi steps, each restart taken while ‖M(b − A x)‖ > max(tol·‖b‖,
     atol). ``A`` and ``M`` are callables over b's shape; b may carry leading
-    dimensions, which the inner products span (one system). Returns (x,
-    info), info -1 where x holds a NaN, else 0 (a 0-d tensor)."""
+    dimensions, which the inner products span (one system); ``reduce``, where
+    given, sums each inner product's partial sum over the ranks that hold
+    the rest of the batch. Returns (x, info), info -1 where x holds a NaN,
+    else 0 (a 0-d tensor)."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     if M is None:
         M = _identity
+    red = reduce or _identity
     size = b.numel()
     if maxiter is None:
         maxiter = 10 * size
     restart = min(restart, size)
-    b_norm = _norm(b)
+    b_norm = _norm(b, red)
     atol_t = torch.clamp(tol * b_norm, min=atol)
-    unit_residual, residual_norm = _safe_normalize(M(b - A(x0)))
+    unit_residual, residual_norm = _safe_normalize(M(b - A(x0)), red=red)
     x = x0
     for _ in range(maxiter):
         go = residual_norm > atol_t
-        x2, u2, r2 = _gmres_batched(A, b, x, unit_residual, residual_norm, restart, M)
+        x2, u2, r2 = _gmres_batched(A, b, x, unit_residual, residual_norm, restart, M, red)
         x = torch.where(go, x2, x)
         unit_residual = torch.where(go, u2, unit_residual)
         residual_norm = torch.where(go, r2, residual_norm)
-    info = torch.where(torch.isnan(_norm(x)), -1, 0)
+    info = torch.where(torch.isnan(_norm(x, red)), -1, 0)
     return x, info
 
 
 def bicgstab(A, b: torch.Tensor, x0: torch.Tensor | None = None, *, tol: float = 1e-5,
-             atol: float = 0.0, maxiter: int | None = None, M=None):
+             atol: float = 0.0, maxiter: int | None = None, M=None, reduce=None):
     """BiCGStab for A x = b, as ``jax.scipy.sparse.linalg.bicgstab``:
     iterations while ‖r‖² > max(tol²‖b‖², atol²), fewer than ``maxiter``
     have run and no breakdown (k = −10: ρ = 0; −11: ω = 0 or α = 0) stopped
-    it. Inner products span b's leading dimensions. Returns (x, None)."""
+    it. Inner products span b's leading dimensions (and, with ``reduce``,
+    the other ranks' rows, as in :func:`gmres`). Returns (x, None)."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     if M is None:
         M = _identity
+    red = reduce or _identity
     if maxiter is None:
         maxiter = 10 * b.numel()
-    bs = _vdot(b, b)
+    bs = _vdot(b, b, red)
     atol2 = torch.clamp(tol * tol * bs, min=atol * atol)
     r0 = b - A(x0)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     x, r, rhat, alpha, omega, rho, p, q = x0, r0, r0, one, one, one, r0, r0
     k = torch.zeros((), dtype=torch.int64, device=b.device)
     for _ in range(maxiter):
-        go = (_vdot(r, r) > atol2) & (k < maxiter) & (k >= 0)
-        rho_ = _vdot(rhat, r)
+        go = (_vdot(r, r, red) > atol2) & (k < maxiter) & (k >= 0)
+        rho_ = _vdot(rhat, r, red)
         beta = rho_ / rho * alpha / omega
         p_ = r + beta * (p - omega * q)
         phat = M(p_)
         q_ = A(phat)
-        alpha_ = rho_ / _vdot(rhat, q_)
+        alpha_ = rho_ / _vdot(rhat, q_, red)
         s = r - alpha_ * q_
-        exit_early = _vdot(s, s) < atol2
+        exit_early = _vdot(s, s, red) < atol2
         shat = M(s)
         t = A(shat)
-        omega_ = _vdot(t, s) / _vdot(t, t)
+        omega_ = _vdot(t, s, red) / _vdot(t, t, red)
         x_ = torch.where(exit_early, x + alpha_ * phat, x + (alpha_ * phat + omega_ * shat))
         r_ = torch.where(exit_early, s, s - omega_ * t)
         k_ = torch.where((omega_ == 0) | (alpha_ == 0), -11, k + 1)

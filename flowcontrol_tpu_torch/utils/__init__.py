@@ -15,8 +15,9 @@ callers that want one numpy helper.
 
 Against the JAX package's aggregator: ``get_frequency_response_tpu`` is
 here under the port's name, ``get_frequency_response_device``, beside
-``eig_arnoldi_dense_device``; ``get_frequency_response_mpi`` is not ported
-yet (ROADMAP.md: multi-GPU).
+``eig_arnoldi_dense_device``; ``get_frequency_response_mpi`` is the sweep
+with its ω split over the ranks of a ``torch.distributed`` group
+(``get_frequency_response_sharded``).
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ _NAMES = {
            "export_square_operators", "load_Hw", "plot_Hw", "save_Hw"),
     "linalg": ("dense_to_sparse", "eig_arnoldi_dense_device", "eigenproblem_slepc",
                "get_field_response", "get_frequency_response",
-               "get_frequency_response_device", "get_frequency_response_parallel",
-               "get_frequency_response_sequential", "get_mat_vp_shift_invert",
+               "get_frequency_response_device", "get_frequency_response_mpi",
+               "get_frequency_response_parallel", "get_frequency_response_sequential",
+               "get_mat_vp_shift_invert",
                "get_mat_vp_slepc", "sparse_to_coo_triplets"),
     "optim": ("batch_evaluate", "parallel_function_wrapper", "compute_control_cost",
               "compute_signal_cost", "cummin", "fun_array", "sobol_sample",

@@ -256,6 +256,34 @@ def get_frequency_response_device(a, b, c, q, ww, dtype: torch.dtype = torch.com
     return h
 
 
+def get_frequency_response_sharded(a_dense, b, c, q_dense, ww, group,
+                                   dtype: torch.dtype = torch.complex64, device="cuda"):
+    """H(jω) with the ω list split over the ranks of the process group
+    ``group`` (``torch.distributed.group.WORLD`` for every rank): the
+    counterpart of the JAX package's
+    ``get_frequency_response_sharded`` (its ω padded with its last value to
+    a multiple of the ranks and cut into contiguous shards, one a device)
+    and of the reference's MPI/MUMPS-distributed sweep (ref:
+    linalg.py:272-328). Each rank solves its shard as
+    :func:`get_frequency_response_device` does, on its ``device`` (each ω a
+    dense complex LU in ``dtype`` and one refinement sweep with a
+    complex128 residual), and one ``all_gather`` gives every rank the whole
+    (len(ww), p, m) complex128 answer. A and Q dense or scipy sparse."""
+    from flowcontrol_tpu_torch.parallel import comm
+
+    dev = require_device(device)
+    n_dev, rank = comm.group_size(group), comm.group_rank(group)
+    ww = np.atleast_1d(np.asarray(ww, dtype=np.float64))
+    n_pad = (-len(ww)) % n_dev
+    ww_p = np.concatenate([ww, np.full(n_pad, ww[-1])])
+    per = len(ww_p) // n_dev
+    h = get_frequency_response_device(a_dense, b, c, q_dense, ww_p[rank * per: (rank + 1) * per],
+                                      dtype=dtype, device=dev)
+    mine = torch.view_as_real(torch.as_tensor(h, device=dev))  # (per, p, m, 2) float64
+    full = comm.all_gather_rows(mine, group).reshape((len(ww_p),) + tuple(mine.shape[1:]))
+    return torch.view_as_complex(full.contiguous()).cpu().numpy()[: len(ww)]
+
+
 def get_field_response(a_csr, b, q_csr, ww):
     """Full-field response X(ω) = (jωQ - A)^{-1} B (ref: linalg.py:331-388)."""
     b = np.asarray(b, dtype=np.complex128).reshape(a_csr.shape[0], -1)
@@ -286,14 +314,14 @@ def sparse_to_coo_triplets(mat):
 # The reference exposes one frequency-response routine per execution strategy
 # (ref: linalg.py:192/235/272) and names its eigensolver after SLEPc
 # (ref: linalg.py:52-129, eig/eig_utils.py:83-253). Same surface here, so
-# reference-style callers port unchanged. The JAX package's device-sharded
-# sweep (get_frequency_response_sharded, and get_frequency_response_mpi on
-# it) waits for the port's multi-GPU slice.
+# reference-style callers port unchanged.
 
 #: sequential host solves (ref: get_frequency_response_sequential)
 get_frequency_response_sequential = get_frequency_response
 #: the joblib-process sweep maps onto the sequential on-device sweep
 get_frequency_response_parallel = get_frequency_response_device
+#: the MPI/MUMPS-distributed sweep maps onto the rank-sharded sweep
+get_frequency_response_mpi = get_frequency_response_sharded
 #: legacy SLEPc name — backed by ARPACK shift-invert here (no SLEPc needed)
 get_mat_vp_slepc = get_mat_vp_shift_invert
 

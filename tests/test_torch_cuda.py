@@ -122,6 +122,12 @@ package, so it also runs on a GPU machine without them:
   sweep solves bitwise equal. The knobs ``inbox='full'``,
   ``FC_MF_PACK=bucket`` and ``trim=False``: F (rows 1, 8) and the sweep
   (B = 64) within 1e-5 of F's plain walk.
+- Multi-GPU (``parallel/``, worlds spawned from
+  ``tests/torch_sharding_ranks.py``): two gloo ranks sharing the card, the
+  sharded multifrontal solve through K2 and P1 against the single-rank
+  sweep and the sharded N(u) through K1 against K1 on the whole mesh; a
+  world of 1 over NCCL through ``shard_stepper`` against the unsharded
+  steps.
 """
 
 import numpy as np
@@ -1496,3 +1502,49 @@ def test_torch_cuda_mf_knobs_match_plain(cuda, tmp_path, monkeypatch):
                else multifrontal_solve(mf, b))
         want = mf_fused.multifrontal_solve_fused_plain(mf, b)
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-5, rows
+
+
+@pytest.mark.cuda
+def test_torch_cuda_sharded_gloo_two_ranks(cuda):
+    """Two gloo ranks sharing the card (tests/torch_sharding_ranks.py
+    ``cuda_world2``): the sharded multifrontal solve of a small cavity's f32
+    factor through K2 and P1 within 1e-6 of the single-rank per-stage sweep
+    at 1 and 64 right-hand sides (whether it is bitwise is printed), each
+    rank holding half the factor; the sharded N(u) through K1 within 1e-5 of
+    K1 on the whole mesh, one launch a rank. gloo gathers CUDA tensors
+    through pinned host buffers."""
+    from flowcontrol_tpu_torch.parallel.launch import run_world
+
+    from torch_sharding_ranks import cuda_world2
+
+    res = run_world(cuda_world2, 2, timeout_s=600)
+    for rank, r in enumerate(res):
+        print(f"rank {rank}: staging {r['staging']}, modes {r['modes']}, factor bytes "
+              f"{r['factor_bytes']}, solve {r['solve']}, N(u) {r['nl']}")
+        assert r["staging"] == {"all_reduce": "direct", "all_gather": "pinned host",
+                                "send/recv": "pinned host"}
+        per, total, whole = r["factor_bytes"]
+        assert per * 2 == total and per < whole
+        for rows, s in r["solve"].items():
+            assert s["rel"] <= 1e-6 and min(s["launches"]) > 0, (rows, s)
+        for rows, s in r["nl"].items():
+            assert s["rel"] <= 1e-5 and s["launches"] == 1, (rows, s)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_sharded_nccl_world_of_one(cuda):
+    """A world of 1 over NCCL (tests/torch_sharding_ranks.py ``cuda_nccl1``):
+    3 steps of the coarse cylinder through ``shard_stepper`` (K1, and the
+    sharded solve through K2 and P1, F never) within 1e-5 of the unsharded
+    steps (F) from the same carry."""
+    from flowcontrol_tpu_torch.parallel.launch import run_world
+
+    from torch_sharding_ranks import cuda_nccl1
+
+    (r,) = run_world(cuda_nccl1, 1, backend="nccl", timeout_s=600)
+    print(f"NCCL world of 1: field {r['rel']:.3e}, y {r['y']} (unsharded {r['y_ref']}), "
+          f"launches K1/K2/P1/F {r['launches']}, kinds {r['kinds']}")
+    assert r["rel"] <= 1e-5
+    assert np.allclose(r["y"], r["y_ref"], rtol=1e-4, atol=1e-7)
+    k1, k2, p1, f = r["launches"]
+    assert k1 == 3 and k2 > 0 and p1 > 0 and f == 0

@@ -35,7 +35,7 @@ fails or no CUDA device is present:
    ``make_default(Re=100)`` on ``cuda`` with
    ``stepper_options={"force_substructure": True}`` and the first run's base
    flow; the host factorization split (a cold build, kept in the factor
-   cache that phases 38 and 40 stream), stage count, factor bytes, measured
+   cache that phases 38, 40 and 43 stream), stage count, factor bytes, measured
    per-solve error and solve kinds (``['borrowed', 'multifrontal']``), then
    200 ``fs.step`` calls with phase 3's controls. All y and dE finite; K1
    launched steps + 1 times, and every single-stream solve one launch of
@@ -144,7 +144,8 @@ fails or no CUDA device is present:
 21. where the cavity step's time goes, and the cylinder multifrontal step's
     with F and through the per-stage sweep: torch.profiler over 10 eager
     ``Stepper.step`` calls each (a CUDA graph keeps the route it was
-    captured with);
+    captured with); then phase 44 (below), the cavity's closed loop, while
+    phase 17's Stepper stands;
 22. the graph phases below, in sum;
 23. the lid-driven cavity, single stream, on a card that holds nothing of
     the earlier phases: ``LidCavityFlowSolver.make_default(Re=8000)`` on
@@ -296,9 +297,10 @@ fails or no CUDA device is present:
 43. multi-GPU through ``torch.distributed`` (``flowcontrol_tpu_torch/
     parallel``), on a card holding nothing of the earlier phases, in a
     temporary directory: the parent writes the default mesh and phase 3's
-    base flow through the port's files, factors once into a factor cache of
-    the phase's own (``force_substructure``, f32 with the refinement sweep)
-    and runs the single-rank references on the card;
+    base flow through the port's files, streams its factor from a factor
+    cache of the phase's own, a copy of phase 6's entry (``force_substructure``,
+    f32 with the refinement sweep; ``loaded_from`` 'stream': phase 42
+    measures the cold build) and runs the single-rank references on the card;
     then a world of
     SHARD_RANKS = 4 gloo ranks, spawned and sharing this card (each rank
     builds the cylinder from those files and streams the factor): all-space
@@ -319,7 +321,27 @@ fails or no CUDA device is present:
     GB) against the host splu (2e-4); then a world of 1 over NCCL through
     the same all-space code. A rank that fails or a world that hangs
     (collectives time out after 60 s, the world after 600 s) fails the
-    phase.
+    phase;
+44. the open cavity's closed loop (BASELINE.json config #3), run right after
+    phase 21 on phase 17's solver and Stepper (no new factorization): the
+    committed leading mode, ROM and discrete LQG at the generated mesh
+    (``models/_controllers/cavity_*_re7500_n120068.*``, made by
+    ``flowcontrol_tpu_torch/tools/cavity_feedback_synth.py``), each refused
+    unless its mesh checksum is phase 17's mesh's; λ, the ROM order and the
+    compensator's states logged; the example's initial condition, 1e-3 x
+    Re(v) (``examples/run_cavity_feedback.start``: the Stepper kept, the
+    seconds logged); CAV_FB_STEPS (4000) steps open loop
+    (``make_rollout_open_loop``, u = 0) and closed loop (``closed_loop_fn(
+    4000, feedback_sign=+1.0)`` with ``Controller.discrete(dt)``) under the
+    graph: dE at 1000, 2000, 3000 and 4000 of each, their ratio and the
+    steps/s of each; the example's eager loop (``fs.step`` + the host
+    ``Controller.step``) for CAV_FB_EAGER (50) closed-loop steps, y, u and
+    dE within MEMBER_TOL of the fused rollout's; exact launches on each of
+    the three runs (K1 steps + 1, F one per solve, nothing else); y and dE
+    finite; where the mesh has an unstable pair, closed/open energy below
+    CAV_FB_RATIO (0.8) at step 4000.
+
+Every log line starts with the seconds since the script started.
 
 ``fs.step`` runs ``Stepper.compiled_step``: from the second step of a run
 a CUDA graph of the step, so phases 3, 6, 10 and 17 time and count the
@@ -352,15 +374,16 @@ exact. Phase 3 also holds the device mass to the assembly's nonzero
 count.
 
 The line before the last is a JSON object describing each kernel (K1 at
-batch 1 (its launches: the dense path's, phase 41's and phase 43's all-space
-and GMRES legs on every rank), 256 (with phase 43's {batch 2, space 2}
+batch 1 (its launches: the dense path's, phase 41's, phase 43's all-space
+and GMRES legs on every rank, and phase 44's), 256 (with phase 43's {batch 2, space 2}
 legs) and 64, and at batch 1 on the lid cavity's and the pinball's
 meshes; K2 at batch 1 (with phase 43's all-space legs), 256 (with its
 {batch 2, space 2} legs) and 64, and at the pinball's 256; K3 at batch
 1 and at batch 256; P1 at batch 256 (with all of phase 43's) and 64, and
 at the pinball's 256; F
 at the cylinder's, the cavity's, the lid cavity's and the pinball's
-factor (the cylinder's launches: phase 6's and phase 42's rerun); P2, P3,
+factor (the cylinder's launches: phase 6's and phase 42's rerun; the
+cavity's: phase 17's and phase 44's); P2, P3,
 P4; S's csr_matmul at batch 256 (its launches: the batched paths',
 phase 41's B = 4 Krylov steps and phase 43's batch legs), f32, with its f64
 and cavity numbers beside
@@ -425,8 +448,12 @@ def controls(i: int, u_on=(0.3, -0.2)) -> np.ndarray:
     return np.asarray(u_on, dtype=float) * (i < CTRL_STEPS)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A log line, headed by the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1720,6 +1747,136 @@ def base_flow(fs) -> tuple[str, float]:
             f"file matches this mesh's checksum"), time.perf_counter() - t0
 
 
+CAV_FB_STEPS = 4000  # the JAX example's and its test's horizon (T = 1.6)
+CAV_FB_EAGER = 50  # the example's eager loop held against the fused rollout
+CAV_FB_RATIO = 0.8  # closed/open energy at CAV_FB_STEPS (tests/integration/test_stock_parity.py:372)
+CAV_FB_MARKS = (1000, 2000, 3000, 4000)
+
+
+def cavity_feedback_phase(fc, stc, counters) -> dict:
+    """Phase 44: the open cavity's closed loop on phase 17's solver and
+    Stepper (no new factorization): the committed mode, ROM and LQG (the
+    mesh checksum checked), the example's initial condition 1e-3 Re(v),
+    CAV_FB_STEPS steps open (``make_rollout_open_loop``, u = 0) and closed
+    (``closed_loop_fn(..., feedback_sign=+1.0)``, the compensator's
+    ``discrete(dt)``) under the graph, and the example's eager loop
+    (``fs.step`` + the host ``Controller.step``) for CAV_FB_EAGER steps
+    against the fused closed loop. Exact launches on each run (K1 steps + 1,
+    F one per solve, nothing else). Returns the launches summed over the
+    three runs."""
+    from flowcontrol_tpu_torch.examples import run_cavity_feedback as example
+    from flowcontrol_tpu_torch.models.baseflows import require_mesh
+    from flowcontrol_tpu_torch.models.cavity import (
+        cavity_feedback_files,
+        load_cavity_controller,
+        load_cavity_mode,
+    )
+
+    t_phase = time.perf_counter()
+    files = cavity_feedback_files(fc.space.n_dofs, fc.params_flow.Re)
+    mode, k = load_cavity_mode(fc), load_cavity_controller(fc)
+    with np.load(files["rom"], allow_pickle=False) as d:
+        require_mesh(files["rom"], d["mesh_sha256"], fc.mesh)
+        rom_order, kept = d["A"].shape[0], d["kept"]
+    unstable = kept[kept.real > 0]
+    log(f"phase 44: {', '.join(p.name for p in files.values())}: the mesh checksum matches "
+        f"phase 17's mesh; leading λ = {complex(mode['eig']):.6f}; ROM order {rom_order} "
+        f"({len(kept)} kept eigenvalues, unstable {np.round(np.sort_complex(unstable), 4).tolist()})"
+        f"; compensator {k.nstates} states, {k.ninputs} inputs, {k.noutputs} output, discrete "
+        f"at dt {k.native_dt}")
+    dt = fc.params_time.dt
+    oi = stc._order_idx[2]
+    mf, refine = stc._solvers[oi], stc._refine.get(oi, 0)
+    t0 = time.perf_counter()
+    for c in counters:
+        c.launches = 0
+    example.start(fc, mode)  # fc holds phase 17's Stepper: kept, with a new carry
+    torch.cuda.synchronize()
+    t_start = time.perf_counter() - t0
+    kept_factor = fc._stepper is stc and stc._solvers[oi] is mf
+    log(f"phase 44: re-initialised on 1e-3 Re(v) in {t_start:.3f} s: phase 17's Stepper "
+        f"{'kept, its factor and graphs (nothing built or streamed)' if kept_factor else 'lost'}; "
+        f"launches K1/K2/P1/K3/F/S/R {[c.launches for c in counters]} (init_carry's K1)")
+    if not kept_factor:
+        raise AssertionError("phase 44: re-initialising replaced phase 17's Stepper")
+    carry0, y0 = fc._carry, np.asarray(fc.y_meas).copy()
+
+    def expected(steps: int) -> list:
+        return [steps + 1, 0, 0, 0, (1 + stc.BORROW_ITERS) + (steps - 1) * (1 + refine), 0, 0]
+
+    runs, total = {}, [0] * len(counters)
+    for name in ("open", "closed"):
+        if name == "open":
+            roll, args = stc.make_rollout_open_loop(), (np.zeros((CAV_FB_STEPS, stc.n_act)),)
+        else:
+            roll = stc.closed_loop_fn(CAV_FB_STEPS, feedback_sign=+1.0)
+            args = (k.discrete(dt), y0)
+        for c in counters:
+            c.launches = 0
+        carry0 = stc.init_carry(carry0.u_n)  # K1 once, as the example's start
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = roll(carry0, *args)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = [c.launches for c in counters]
+        if name == "open":
+            ys, de, us, div = out.y, out.dE, None, out.diverged
+        else:
+            ys, de, us, div = out
+        ys, de = ys.double().cpu().numpy(), de.double().cpu().numpy()
+        runs[name] = dict(ys=ys, de=de, us=None if us is None else us.double().cpu().numpy())
+        log(f"phase 44 ({name} loop): {CAV_FB_STEPS} steps under the graph in {sec:.2f} s, "
+            f"{CAV_FB_STEPS / sec:.2f} steps/s (first capture included); dE "
+            + ", ".join(f"{n}: {de[n - 1]:.6e}" for n in CAV_FB_MARKS)
+            + (f"; max |u| {np.abs(runs[name]['us']).max():.4e}" if us is not None else "")
+            + f"; launches K1/K2/P1/K3/F/S/R {launches} (expected {expected(CAV_FB_STEPS)})")
+        if not (np.isfinite(ys).all() and np.isfinite(de).all()) or bool(div.any()):
+            raise AssertionError(f"phase 44 ({name} loop): non-finite y or dE")
+        if launches != expected(CAV_FB_STEPS):
+            raise AssertionError(f"phase 44 ({name} loop): launches {launches}")
+        total = [a + b for a, b in zip(total, launches)]
+    ratio = {n: runs["closed"]["de"][n - 1] / runs["open"]["de"][n - 1] for n in CAV_FB_MARKS}
+    log(f"phase 44: closed/open energy " + ", ".join(f"{n}: {r:.4f}" for n, r in ratio.items())
+        + f" (dE at the start {runs['open']['de'][0]:.6e}; open grows "
+        f"{runs['open']['de'][-1] / runs['open']['de'][0]:.3f}x over {CAV_FB_STEPS} steps)")
+    if len(unstable) and not ratio[CAV_FB_STEPS] < CAV_FB_RATIO:
+        raise AssertionError(f"phase 44: closed/open energy {ratio[CAV_FB_STEPS]:.4f} at step "
+                             f"{CAV_FB_STEPS}, not below {CAV_FB_RATIO}")
+
+    # the example's eager loop against the fused closed loop
+    for c in counters:
+        c.launches = 0
+    k.reset()
+    example.start(fc, mode)
+    t0 = time.perf_counter()
+    example.run(fc, CAV_FB_EAGER, k)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    ts = fc.timeseries
+    y_e = np.stack([ts[f"y_meas_{i + 1}"][1:] for i in range(stc.ns)], 1)
+    u_e, de_e = ts["u_ctrl_1"][1:], ts["dE"][1:]
+    cl = runs["closed"]
+    errs = {"y": rel_err(torch.as_tensor(cl["ys"][:CAV_FB_EAGER]), torch.as_tensor(y_e))[0],
+            "u": rel_err(torch.as_tensor(cl["us"][:CAV_FB_EAGER, 0]), torch.as_tensor(u_e))[0],
+            "dE": rel_err(torch.as_tensor(cl["de"][:CAV_FB_EAGER]), torch.as_tensor(de_e))[0]}
+    log(f"phase 44 (the example's eager loop): {CAV_FB_EAGER} fs.step + Controller.step in "
+        f"{sec:.2f} s; against the fused closed loop, relative to each peak: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {MEMBER_TOL:g}); launches K1/K2/P1/K3/F/S/R {launches} (expected "
+        f"{expected(CAV_FB_EAGER)})")
+    if not (np.isfinite(y_e).all() and np.isfinite(de_e).all()):
+        raise AssertionError("phase 44 (eager): non-finite y or dE")
+    if launches != expected(CAV_FB_EAGER):
+        raise AssertionError(f"phase 44 (eager): launches {launches}")
+    if not max(errs.values()) <= MEMBER_TOL:
+        raise AssertionError(f"phase 44: the eager loop differs from the fused one: {errs}")
+    total = [a + b for a, b in zip(total, launches)]
+    log(f"phase 44: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=total, ratio=ratio[CAV_FB_STEPS])
+
+
 def kernel_row(name, source, replaces, launches, r, library_ms, **extra) -> dict:
     """One kernel's entry of the kernels line."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2728,12 +2885,13 @@ def omega_system() -> tuple:
     return og.get_A(autodiff=False), og.get_mass_matrix(), og.get_B(), og.get_C()
 
 
-def sharded_phase(u0: np.ndarray, p0: np.ndarray, host, card: str) -> dict:
+def sharded_phase(u0: np.ndarray, p0: np.ndarray, host, card: str, factors: Path) -> dict:
     """Phase 43: the multi-GPU layer (``flowcontrol_tpu_torch/parallel``) on
     the card, at the default cylinder's 56,383 dofs (``force_substructure``,
     f32 with the refinement sweep), in a temporary directory: the parent
     writes the mesh and phase 3's base flow through the port's files,
-    factors once into a factor cache of the phase's own and runs the
+    streams its factor from a factor cache of the phase's own (a copy of
+    ``factors``, phase 6's entry: phase 42 measures the cold build) and runs the
     single-rank references (SHARD_STEPS ``fs.step`` calls;
     the B = BATCH open loop and the fused closed loop; SHARD_GMRES_STEPS
     GMRES steps; the host's H(jω) on the reduced system); then a world of
@@ -2754,7 +2912,9 @@ def sharded_phase(u0: np.ndarray, p0: np.ndarray, host, card: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
         out = Path(tmp)
         (out / "ranks").mkdir()
-        cache = out / "factors"  # the parent's cold build, which the ranks stream
+        # a copy of phase 6's entry, which the parent and the ranks stream
+        cache = out / "factors"
+        shutil.copytree(factors, cache)
         os.environ["FLOWCONTROL_TPU_FACTOR_CACHE"] = str(cache)
         try:
             meshpath = out / "mesh" / "cylinder.xdmf"
@@ -2767,7 +2927,7 @@ def sharded_phase(u0: np.ndarray, p0: np.ndarray, host, card: str) -> dict:
             fs.load_steady_state()
             fs.initialize_time_stepping()
             t0 = time.perf_counter()
-            st = fs.stepper  # the one factorization, written to the cache
+            st = fs.stepper  # streamed from the copy of phase 6's entry
             factor_cache.flush()
             t_factor = time.perf_counter() - t0
             whole = st._solvers[st._order_idx[2]].factor_bytes
@@ -2806,11 +2966,12 @@ def sharded_phase(u0: np.ndarray, p0: np.ndarray, host, card: str) -> dict:
                         steady=[str(fs.paths.U0), str(fs.paths.P0)], carry1=carry1,
                         legs=("space", "batch", "gmres", "omega"), omega=(a, e, b, c))
             free_card()
-            if loaded != "build":
+            if loaded != "stream":
                 raise AssertionError(f"phase 43: the parent's factor came from {loaded!r}, "
-                                     f"not a cold build")
+                                     f"not phase 6's entry")
             log(f"phase 43: set-up in the parent: the mesh and phase 3's base flow through the "
-                f"port's files, its factor built into the phase's cache {cache} (loaded_from "
+                f"port's files, its factor streamed from a copy of phase 6's entry, {cache} "
+                f"(loaded_from "
                 f"{loaded!r}, "
                 f"{t_factor:.2f} s, {whole / 1e9:.4f} GB of stacks), the single-rank "
                 f"references: {SHARD_STEPS} "
@@ -3563,9 +3724,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
               "needs a CUDA device", file=sys.stderr)
         return 1
-    # phases 38 and 40 stream the default cylinder's multifrontal factor that
-    # phase 6 builds cold (each cold build costs ~20 s; the run holds its
-    # time limit with these two spared)
+    # phases 38, 40 and 43 stream the default cylinder's multifrontal factor
+    # that phase 6 builds cold (each cold build costs ~20 s; the run holds
+    # its time limit with these three spared)
     factors = Path(tempfile.mkdtemp(prefix="chip_smoke_factors_"))
     try:
         return run_phases(factors)
@@ -3575,7 +3736,7 @@ def main() -> int:
 
 def run_phases(factors: Path) -> int:
     """Every phase; ``factors``: the factor cache directory phase 6 writes
-    and phases 38 and 40 stream."""
+    and phases 38, 40 and 43 stream."""
     import flowcontrol_tpu_torch.solvers.multifrontal as mf_module
     from flowcontrol_tpu_torch.models.cavity import CavityFlowSolver
     from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
@@ -3598,7 +3759,8 @@ def run_phases(factors: Path) -> int:
 
     t_run = time.perf_counter()
     # the factor cache off but in phases 6 (a cold build kept), 38 and 40
-    # (streamed), 42 and 43 (each in a directory of its own), so that the
+    # (streamed), 42 and 43 (each in a directory of its own; 43's a copy of
+    # phase 6's), so that the
     # other set-up numbers keep their meaning (a warm entry would spare the
     # factorization)
     os.environ["FLOWCONTROL_TPU_FACTOR_CACHE"] = "off"
@@ -3607,7 +3769,7 @@ def run_phases(factors: Path) -> int:
     kind = torch.cuda.get_device_name(0)
 
     # ── phase 1: card, versions, kernel builds ───────────────────────────────
-    log(card)  # as nvidia-smi gives it: name, power limit
+    print(card, flush=True)  # as nvidia-smi gives it: name, power limit
     log(f"phase 1: nvidia-smi: {card}")
     log(f"phase 1: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {kind}, count {torch.cuda.device_count()}")
@@ -3695,7 +3857,7 @@ def run_phases(factors: Path) -> int:
     fs2._assign_steady_state(fs.fields.U0, fs.fields.P0)  # the host Newton, once
     fs2.initialize_time_stepping()
     t_mesh2 = time.perf_counter() - t0
-    os.environ["FLOWCONTROL_TPU_FACTOR_CACHE"] = str(factors)  # built cold, kept for 38 and 40
+    os.environ["FLOWCONTROL_TPU_FACTOR_CACHE"] = str(factors)  # built cold, kept for 38, 40, 43
     mfp = run_path(fs2, counters)
     os.environ["FLOWCONTROL_TPU_FACTOR_CACHE"] = "off"
     st2 = mfp["st"]
@@ -3956,6 +4118,10 @@ def run_phases(factors: Path) -> int:
     finally:
         mf_module.FUSED_MAX_ROWS = fused_max_rows
 
+    # ── phase 44: the cavity's closed loop on phase 17's Stepper (no new
+    # factorization): the committed LQG, 4000 steps open and closed
+    cav_fb = cavity_feedback_phase(fc, stc, counters)
+
     # ── phase 22: the compiled entry points' graphs against eager, in sum ──
     graph_summary(graphs, "phase 22", card)
 
@@ -3990,11 +4156,11 @@ def run_phases(factors: Path) -> int:
     # ── phase 43: multi-GPU through torch.distributed, on a card holding
     # nothing else (worlds of 4 gloo ranks and of 1 NCCL rank on it)
     free_card()
-    shard = sharded_phase(u0_cyl, p0_cyl, host, card)
+    shard = sharded_phase(u0_cyl, p0_cyl, host, card, factors)
     s_launches = [s_launches[0] + shard["batch"][3], s_launches[1] + shard["batch"][4]]
 
     src = "flowcontrol_tpu_torch/csrc/"
-    f_launches = mfp["launches"][4] + cav["launches"][4] + cached["f"]
+    f_launches = mfp["launches"][4] + cav["launches"][4] + cav_fb["launches"][4] + cached["f"]
     k2_cyl_launches = open_mf["launches"][1] + closed_mf["launches"][1]
     k2_launches = k2_cyl_launches + open_c["launches"][1]
     p1_cyl_launches = open_mf["launches"][2] + closed_mf["launches"][2]
@@ -4002,8 +4168,9 @@ def run_phases(factors: Path) -> int:
     log(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f} s wall")
     print(json.dumps({"kernels": [
         kernel_row("K1 nl_convection", src + "nl_convection.cu",
-            "flowcontrol_tpu/ops/pallas_nl.py:136", k1_launches + krylov["k1"] + shard["B1"][0], k1,
-            None, phase43_launches=shard["B1"][0]),
+            "flowcontrol_tpu/ops/pallas_nl.py:136",
+            k1_launches + krylov["k1"] + shard["B1"][0] + cav_fb["launches"][0], k1, None,
+            phase43_launches=shard["B1"][0], phase44_launches=cav_fb["launches"][0]),
         kernel_row(f"K1 nl_convection B={BATCH} cylinder", src + "nl_convection.cu",
             "flowcontrol_tpu/ops/pallas_nl.py:136", k1_batched_launches + shard["batch"][0],
             dict(max_abs_err=k1["max_abs_err"], **k1["widths"][BATCH]), None,
@@ -4043,8 +4210,9 @@ def run_phases(factors: Path) -> int:
             None,
             sweep_ms=f_cyl["sweep_ms"]),
         kernel_row(f"F multifrontal_solve_fused cavity n={n_cav}", src + "mf_fused.cu",
-            "flowcontrol_tpu/solvers/multifrontal.py:1202", cav["launches"][4], f_cav, None,
-            sweep_ms=f_cav["sweep_ms"]),
+            "flowcontrol_tpu/solvers/multifrontal.py:1202",
+            cav["launches"][4] + cav_fb["launches"][4], f_cav, None, sweep_ms=f_cav["sweep_ms"],
+            phase44_launches=cav_fb["launches"][4]),
         # P2-P4 run on the main path as device functions inside every F
         # launch; their times are their own kernels' at the probe's shapes
         kernel_row("P2 take_along_axis_lanes", src + "mf_fused.cu", probe_src + ":65", f_launches,

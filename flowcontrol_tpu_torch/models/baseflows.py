@@ -41,3 +41,11 @@ def committed_baseflow(fs) -> Path | None:
         if str(d["mesh_sha256"]) != mesh_checksum(fs.mesh):
             return None
     return path
+
+
+def require_mesh(path: Path, stored: str, mesh) -> None:
+    """Raise ``ValueError`` unless ``stored``, the checksum a file derived
+    from one mesh carries, is ``mesh``'s."""
+    if str(stored) != mesh_checksum(mesh):
+        raise ValueError(f"{Path(path).name} was made on another mesh (checksum {str(stored)[:12]}, "
+                         f"this mesh's {mesh_checksum(mesh)[:12]})")

@@ -12,6 +12,11 @@ keywords, and a mesh file as ``meshpath=`` (an ``.xdmf``, ``mesh/io.py``).
 At the default mesh (26,440 cells, 120,068 mixed dofs) the dense LU's f64
 factorization does not fit an 80 GB card, so on CUDA the Stepper takes the
 multifrontal solve.
+
+The closed loop's inputs at that mesh (``tools/cavity_feedback_synth.py``
+writes them): ``_controllers/cavity_{rom,lqg,mode}_re7500_n120068.*``, each
+with the checksum of the mesh it was made on; ``load_cavity_mode`` and
+``load_cavity_controller`` refuse a solver on another mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +38,43 @@ from flowcontrol_tpu_torch.core.sensor import (
 from flowcontrol_tpu_torch.mesh.io import read_xdmf_mesh
 
 logger = logging.getLogger(__name__)
+
+CONTROLLER_DIR = Path(__file__).parent / "_controllers"
+
+
+def cavity_feedback_files(n_dofs: int, Re: float = 7500, directory=None) -> dict:
+    """The paths of the closed loop's three files at a mesh of ``n_dofs``:
+    'rom' (the modal ROM), 'lqg' (the compensator) and 'mode' (the leading
+    eigenmode, the initial condition)."""
+    d = CONTROLLER_DIR if directory is None else Path(directory)
+    return {kind: d / f"cavity_{kind}_re{Re:g}_n{n_dofs}.{'mat' if kind == 'lqg' else 'npz'}"
+            for kind in ("rom", "lqg", "mode")}
+
+
+def load_cavity_mode(fs, path=None) -> dict:
+    """The leading eigenmode of ``fs``'s mesh: {'eig': λ, 'v_re', 'v_im'
+    (float32, n_dofs)}, from ``path`` (default: the committed file at its
+    dof count); ``ValueError`` where the file was made on another mesh."""
+    from flowcontrol_tpu_torch.models.baseflows import require_mesh
+
+    path = Path(path or cavity_feedback_files(fs.space.n_dofs, fs.params_flow.Re)["mode"])
+    with np.load(path, allow_pickle=False) as d:
+        require_mesh(path, d["mesh_sha256"], fs.mesh)
+        return {k: d[k] for k in ("eig", "v_re", "v_im")}
+
+
+def load_cavity_controller(fs, path=None):
+    """The discrete LQG compensator of ``fs``'s mesh as a ``Controller``
+    (u = +K(y)), from ``path`` (default: the committed file at its dof
+    count); ``ValueError`` where the file was made on another mesh."""
+    import scipy.io as sio
+
+    from flowcontrol_tpu_torch.core.controller import Controller
+    from flowcontrol_tpu_torch.models.baseflows import require_mesh
+
+    path = Path(path or cavity_feedback_files(fs.space.n_dofs, fs.params_flow.Re)["lqg"])
+    require_mesh(path, sio.loadmat(str(path))["mesh_sha256"][0], fs.mesh)
+    return Controller.from_file(path)
 
 
 def default_cavity_mesh(**kwargs):

@@ -168,7 +168,7 @@ def eig_arnoldi_dense_device(
     # shift-invert mode), ordered by real part. The JAX function orders all
     # of them by real part, which with a singular E puts first the spurious
     # λ = σ + 1/θ, θ ≈ 0, of the start vector's part in E's null space
-    # (ROADMAP Queue 3).
+    # (ROADMAP, "Faults in the reference").
     near = np.argsort(-np.abs(theta))[:n]
     order = near[np.argsort(-lam[near].real)]
     vecs = vs[:n_krylov].T.cpu().numpy().astype(np.complex128) @ z[:, order]
@@ -399,8 +399,8 @@ def modal_rom(a_csr, e_csr, b, c, shifts=(0.0 + 0.75j,), k_per_shift: int = 6,
         cv = c @ v
         if abs(lam.imag) <= pair_tol:  # real mode: 1x1 block
             # the reference's block, kept: Re(wᴴB) Re(Cv) scales by cos²φ
-            # with the phase φ ARPACK gives v (ROADMAP Queue 3); the
-            # residue is (Cv)(wᴴB)
+            # with the phase φ ARPACK gives v (ROADMAP, "Faults in the
+            # reference"); the residue is (Cv)(wᴴB)
             blocks_a.append(np.array([[lam.real]]))
             blocks_b.append(np.atleast_2d(beta.real))
             blocks_c.append(np.atleast_2d(cv.real).T)

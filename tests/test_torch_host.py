@@ -185,7 +185,10 @@ def test_torch_import_leaves_jax_out():
         "import chip_smoke\n"
         "assert {'flowcontrol_tpu_torch.solvers.krylov',\n"
         "        'flowcontrol_tpu_torch.solvers.factor_cache',\n"
-        "        'flowcontrol_tpu_torch.examples.synthesize_controller'} <= set(names), names\n"
+        "        'flowcontrol_tpu_torch.examples.synthesize_controller',\n"
+        "        'flowcontrol_tpu_torch.examples.run_cavity_feedback',\n"
+        "        'flowcontrol_tpu_torch.tools',\n"
+        "        'flowcontrol_tpu_torch.tools.cavity_feedback_synth'} <= set(names), names\n"
         "assert len(names) >= 70, len(names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flowcontrol_tpu' or m.startswith('flowcontrol_tpu.'))\n"

@@ -271,8 +271,8 @@ def test_torch_modal_rom_matches_jax():
     a complex pair's B_k and C_k are the same up to the rotation that phase
     fixes (the same C_k B_k, |B_k| and block response). A real mode's B_k
     and C_k take the real parts of wᴴB and Cv separately in both packages,
-    so they depend on that phase (a fault of the reference's, ROADMAP
-    Queue 3); its A block is compared."""
+    so they depend on that phase (a fault of the reference's, ROADMAP,
+    "Faults in the reference"); its A block is compared."""
     a, e, b, c, _ = _rom_system()
     kw = dict(shifts=[0 + 0.8j, 0 + 1.5j, 0 + 0.4j, 0 + 0j], k_per_shift=4)
     rom_t, kept_t = modal_rom(sp.csr_matrix(a), sp.csr_matrix(e), b, c, **kw)

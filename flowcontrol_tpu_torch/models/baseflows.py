@@ -31,15 +31,27 @@ def baseflow_name(fs) -> str:
     return f"{fs.BASEFLOW_NAME}_re{fs.params_flow.Re:g}_n{fs.space.n_dofs}.npz"
 
 
-def committed_baseflow(fs) -> Path | None:
-    """The committed base flow of ``fs``'s flow, Reynolds number and mesh,
-    or None where no file matches the mesh's checksum."""
-    path = BASEFLOW_DIR / baseflow_name(fs)
-    if not path.exists():
-        return None
+def committed_baseflow(fs, directory=None) -> Path | None:
+    """The base flow of ``fs``'s flow, Reynolds number and mesh in
+    ``directory`` (default: the committed files), or None where no file
+    matches the mesh's checksum."""
+    path = (BASEFLOW_DIR if directory is None else Path(directory)) / baseflow_name(fs)
+    return path if path.exists() and same_mesh(path, fs.mesh) else None
+
+
+def same_mesh(path: Path, mesh) -> bool:
+    """Whether the base flow file ``path`` was computed on ``mesh``."""
     with np.load(path, allow_pickle=False) as d:
-        if str(d["mesh_sha256"]) != mesh_checksum(fs.mesh):
-            return None
+        return str(d["mesh_sha256"]) == mesh_checksum(mesh)
+
+
+def write_baseflow(fs, directory) -> Path:
+    """Write ``fs``'s base flow (U0, P0, its mesh's checksum) into
+    ``directory`` under ``baseflow_name``; returns the path."""
+    path = Path(directory) / baseflow_name(fs)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, U0=fs.fields.U0, P0=fs.fields.P0,
+                        mesh_sha256=np.asarray(mesh_checksum(fs.mesh)))
     return path
 
 

@@ -12,10 +12,15 @@ ParamSolver fields as keywords.
 The JAX package caches its generated mesh as XDMF; the port generates the
 mesh in memory on every ``make_default`` (the default: 14,748 cells, 67,920
 mixed dofs) unless given ``mesh=`` or ``meshpath=`` (an ``.xdmf`` file,
-``mesh/io.py``). The LQG
-compensator of the MIMO closed loop, ``_controllers/pinball_lqg_re100.mat``
-(22 states, 3 sensors, 3 rotation actuators, discrete at dt = 0.005), is
-the JAX package's file.
+``mesh/io.py``).
+
+The MIMO closed loop's inputs at that mesh (``tools/pinball_mimo_synth.py``
+writes them): ``_controllers/pinball_{rom,lqg,mode}_re100_n67920.*``, each
+with the checksum of the mesh it was made on; ``load_pinball_mode`` and
+``load_pinball_controller`` refuse a solver on another mesh.
+``_controllers/pinball_lqg_re100.mat`` (22 states, 3 sensors, 3 rotation
+actuators, discrete at dt = 0.005) is the JAX package's compensator,
+synthesized on the stock mesh, kept to hold the port against it.
 """
 
 from __future__ import annotations
@@ -39,9 +44,46 @@ from flowcontrol_tpu_torch.mesh.io import read_xdmf_mesh
 
 logger = logging.getLogger(__name__)
 
-#: the MIMO LQG compensator at Re=100 (u = +K(y): see
-#: examples/run_pinball_feedback.py)
-PINBALL_LQG_RE100 = Path(__file__).parent / "_controllers" / "pinball_lqg_re100.mat"
+CONTROLLER_DIR = Path(__file__).parent / "_controllers"
+#: the JAX package's MIMO LQG compensator at Re=100, made on the stock mesh
+#: (u = +K(y): see examples/run_pinball_feedback.py)
+PINBALL_LQG_RE100 = CONTROLLER_DIR / "pinball_lqg_re100.mat"
+
+
+def pinball_feedback_files(n_dofs: int, Re: float = 100, directory=None) -> dict:
+    """The paths of the closed loop's three files at a mesh of ``n_dofs``:
+    'rom' (the modal ROM), 'lqg' (the compensator) and 'mode' (the leading
+    eigenmode, the initial condition)."""
+    d = CONTROLLER_DIR if directory is None else Path(directory)
+    return {kind: d / f"pinball_{kind}_re{Re:g}_n{n_dofs}.{'mat' if kind == 'lqg' else 'npz'}"
+            for kind in ("rom", "lqg", "mode")}
+
+
+def load_pinball_mode(fs, path=None) -> dict:
+    """The leading eigenmode of ``fs``'s mesh: {'eig': λ, 'v_re', 'v_im'
+    (float32, n_dofs)}, from ``path`` (default: the committed file at its
+    Re and dof count); ``ValueError`` where the file was made on another
+    mesh."""
+    from flowcontrol_tpu_torch.models.baseflows import require_mesh
+
+    path = Path(path or pinball_feedback_files(fs.space.n_dofs, fs.params_flow.Re)["mode"])
+    with np.load(path, allow_pickle=False) as d:
+        require_mesh(path, d["mesh_sha256"], fs.mesh)
+        return {k: d[k] for k in ("eig", "v_re", "v_im")}
+
+
+def load_pinball_controller(fs, path=None):
+    """The discrete MIMO LQG compensator of ``fs``'s mesh as a ``Controller``
+    (u = +K(y)), from ``path`` (default: the committed file at its Re and
+    dof count); ``ValueError`` where the file was made on another mesh."""
+    import scipy.io as sio
+
+    from flowcontrol_tpu_torch.core.controller import Controller
+    from flowcontrol_tpu_torch.models.baseflows import require_mesh
+
+    path = Path(path or pinball_feedback_files(fs.space.n_dofs, fs.params_flow.Re)["lqg"])
+    require_mesh(path, sio.loadmat(str(path))["mesh_sha256"][0], fs.mesh)
+    return Controller.from_file(path)
 
 
 def default_pinball_mesh(**kwargs):

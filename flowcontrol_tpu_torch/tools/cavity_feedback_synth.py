@@ -108,11 +108,11 @@ def flow(mesh=None, meshpath=None) -> CavityFlowSolver:
     return fs
 
 
-def operators(fs) -> tuple:
-    """(A, E, B, C) around ``fs``'s base flow at zero control, B as
-    (n, n_act) and C as (n_sens, n) (the JAX tool's ``_operators``)."""
+def operators(fs, autodiff: bool = False, u_ctrl=(0.0,)) -> tuple:
+    """(A, E, B, C) around ``fs``'s base flow at the control ``u_ctrl``, B
+    as (n, n_act) and C as (n_sens, n) (the JAX tool's ``_operators``)."""
     t1 = time.time()
-    a, e, b, c = OperatorGetter(fs).get_all(autodiff=False, u_ctrl=[0.0])
+    a, e, b, c = OperatorGetter(fs).get_all(autodiff=autodiff, u_ctrl=list(u_ctrl))
     b = np.atleast_2d(np.asarray(b))
     if b.shape[0] != fs.space.n_dofs:
         b = b.T
@@ -230,10 +230,11 @@ def certify(rom: StateSpace, k: StateSpace, dt: float = DT) -> float:
     return sr
 
 
-def rom_energy_ratios(rom: StateSpace, k: StateSpace, kept, dt: float = DT) -> dict:
-    """{N: closed-loop / open-loop ROM energy at step N} from the leading
-    mode's initial state (0.5 on its first state), the trajectory the
-    closed-loop test pins."""
+def rom_energy_ratios(rom: StateSpace, k: StateSpace, kept, dt: float = DT,
+                      steps=ENERGY_STEPS) -> dict:
+    """{N: closed-loop / open-loop ROM energy at step N, for N in ``steps``}
+    from the leading mode's initial state (0.5 on its first state), the
+    trajectory the closed-loop test pins."""
     m, adp = sampled_interconnection(rom, k, dt)
     nx = adp.shape[0]
     _, offsets = mode_offsets(kept)
@@ -242,25 +243,26 @@ def rom_energy_ratios(rom: StateSpace, k: StateSpace, kept, dt: float = DT) -> d
     x0[offsets[complex(lam0)]] = 0.5
     z, zo = np.concatenate([x0, np.zeros(nx)]), x0.copy()
     out = {}
-    for i in range(1, max(ENERGY_STEPS) + 1):
+    for i in range(1, max(steps) + 1):
         z, zo = m @ z, adp @ zo
-        if i in ENERGY_STEPS:
+        if i in steps:
             out[i] = float(np.sum(z[:nx] ** 2) / np.sum(zo ** 2))
             log.info("ROM closed/open energy at N=%d: %.3f", i, out[i])
     return out
 
 
 def write_artifacts(fs, rom: StateSpace, kept, shifts, k: StateSpace, mode: tuple,
-                    out_dir=None) -> dict:
-    """Write the three files for ``fs``'s mesh (names from
-    ``cavity_feedback_files``), each with the mesh's checksum."""
-    paths = cavity_feedback_files(fs.space.n_dofs, RE, out_dir)
+                    out_dir=None, paths=None, dt: float = DT) -> dict:
+    """Write the three files for ``fs``'s mesh (``paths``, default
+    ``cavity_feedback_files``'), each with the mesh's checksum, the
+    compensator discrete at ``dt``."""
+    paths = paths or cavity_feedback_files(fs.space.n_dofs, RE, out_dir)
     paths["rom"].parent.mkdir(parents=True, exist_ok=True)
     sha = mesh_checksum(fs.mesh)
     np.savez_compressed(paths["rom"], A=np.asarray(rom.A), B=np.asarray(rom.B),
                         C=np.asarray(rom.C), kept=np.asarray(kept),
                         shifts=np.asarray(shifts, dtype=complex), mesh_sha256=sha)
-    export_controller(paths["lqg"], k, dt=DT)
+    export_controller(paths["lqg"], k, dt=dt)
     mat = {key: v for key, v in sio.loadmat(str(paths["lqg"])).items() if not key.startswith("__")}
     sio.savemat(str(paths["lqg"]), {**mat, "mesh_sha256": sha})
     eig, v = mode

@@ -188,7 +188,12 @@ def test_torch_import_leaves_jax_out():
         "        'flowcontrol_tpu_torch.examples.synthesize_controller',\n"
         "        'flowcontrol_tpu_torch.examples.run_cavity_feedback',\n"
         "        'flowcontrol_tpu_torch.tools',\n"
-        "        'flowcontrol_tpu_torch.tools.cavity_feedback_synth'} <= set(names), names\n"
+        "        'flowcontrol_tpu_torch.tools.cavity_feedback_synth',\n"
+        "        'flowcontrol_tpu_torch.tools.pinball_mimo_synth',\n"
+        "        'flowcontrol_tpu_torch.tools.pinball_design_search',\n"
+        "        'flowcontrol_tpu_torch.tools.bifurcation_sweep',\n"
+        "        'flowcontrol_tpu_torch.tools.lidcavity_hopf_sweep',\n"
+        "        'flowcontrol_tpu_torch.examples.run_pinball_feedback'} <= set(names), names\n"
         "assert len(names) >= 70, len(names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'flowcontrol_tpu' or m.startswith('flowcontrol_tpu.'))\n"

@@ -10,7 +10,9 @@ fails or no CUDA device is present:
    the builds of kernel K1 (``csrc/nl_convection.cu``), kernels K2 and P1
    (``csrc/mf_sweep.cu``), kernel K3 (``csrc/block_trisolve.cu``), F and
    P2-P4 (``csrc/mf_fused.cu``) and S (``csrc/csr_spmm.cu``), one nvcc
-   each, started together;
+   each, started together: phases 2-5g wait for K1 alone, the others
+   build behind them and are waited for before phase 6 (F's library takes
+   ~100 s);
 2. K1 against its plain torch version at the 56,383-dof default cylinder
    mesh, batch 1, 4, 64 and 256 (the single stream's and the batched
    paths' widths): max |kernel - plain| / max |plain| <= 1e-5 (f32 with a
@@ -125,8 +127,9 @@ fails or no CUDA device is present:
     dense range, so the multifrontal solve without ``force_substructure``);
     the base flow loaded from the committed file when its mesh checksum
     matches, else Picard (10) then Newton (10) on the host, and the log
-    says which; host factorization split, stages, factor bytes, per-solve
-    error, refinement sweeps; solve kinds ``['borrowed', 'multifrontal']``;
+    says which; the factor streamed from the child's host build (below) and
+    that build's split, stages, factor bytes, per-solve error, refinement
+    sweeps; solve kinds ``['borrowed', 'multifrontal']``;
     200 ``fs.step`` calls with u = [0.5] for 10 steps and 0 after. All y and
     dE finite; K1 steps + 1 launches, F one per solve, K2 and P1 none;
 18. F against plain and the sweep on the cavity factor, as in phase 16;
@@ -360,7 +363,36 @@ fails or no CUDA device is present:
     per solve, and S's batched sparse products on the 2-row loop, nothing
     else); y and dE finite; closed/open energy at step N
     logged against PIN_FB_RATIO (0.5, the JAX test's) and held below
-    PIN_FB_HOLD (1: no design the search tried stays bounded below 0.5).
+    PIN_FB_HOLD (1: no design the search tried stays bounded below 0.5);
+46. the half-million-dof cylinder (``flowcontrol_tpu_torch/tools/
+    scale_big.py``, density 30: 506,553 dofs), last, on a card holding
+    nothing of the earlier phases. Its BDF2 multifrontal factor is built on
+    the host by ``scale_big.py``'s ``factor`` in the child process (below);
+    the phase waits for it and logs its set-up split and peak host memory.
+    The flow through the tool's ``build``: the
+    committed base flow (``models/_baseflows/cylinder_re100_n506553.npz``),
+    or a failure where its checksum does not match the mesh; the factor's
+    derived entry streamed to the card ('auto' takes the multifrontal solve:
+    ``loaded_from`` 'stream' and the kinds ['borrowed', 'multifrontal']
+    held); stages, GB, F's grid and shared memory at 1 and 8 rows against
+    the card's opt-in; BIG_STEPS (50) ``fs.step`` calls as phase 3's, exact
+    K1 and F launches; the 10-step field error against an f64 reference
+    whose solves are F's refined against the f64 residual to 1e-12 (below
+    BIG_PIN, 1e-4); the tool's 50-step rollout at u = 0 twice (the second
+    replays the graph: exact K1 and F launches, nothing else; y bitwise the
+    first run's); the single stream graph against eager in turns (46g);
+    F against its plain version and the per-stage sweep at this factor,
+    with its bound (phase 16's routine); K1 at this mesh (phase 2's).
+
+The BDF2 multifrontal factors of phases 17 (the open cavity), 23 (the lid
+cavity), 27 (the pinball) and 46 are built on the host by one child process
+(``chip_smoke.py --prebuild DIR``: the CPU, f32, BIG_CHILD_THREADS BLAS
+threads, no card), started at the top of the run, into a factor cache
+directory of its own, in that order, beside phases 1-16; each of those
+phases waits for its factor's ``READY`` line in the child's output, logs
+the child's set-up split of it and streams it to the card ('stream' held).
+The cylinder's own factors are built in the main process (phase 6 cold,
+phase 42 cold in a directory of its own).
 
 Every log line starts with the seconds since the script started.
 
@@ -404,7 +436,8 @@ meshes; K2 at batch 1 (with phase 43's all-space legs), 256 (with its
 at the pinball's 256; F
 at the cylinder's, the cavity's, the lid cavity's and the pinball's
 factor (the cylinder's launches: phase 6's and phase 42's rerun; the
-cavity's: phase 17's and phase 44's); P2, P3,
+cavity's: phase 17's and phase 44's) and at phase 46's 506,553-dof
+factor, with K1 on that mesh; P2, P3,
 P4; S's csr_matmul at batch 256 (its launches: the batched paths',
 phase 41's B = 4 Krylov steps and phase 43's batch legs), f32, with its f64
 and cavity numbers beside
@@ -432,6 +465,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -653,9 +687,10 @@ def phase_kernel(space, geom, dev, widths=(1, 4, 64, BATCH), tag="phase 2") -> d
 
 class HostF64Loop:
     """Host float64 reference: the BDF2 step with AB2 nonlinear terms,
-    one scipy splu factor, RHS and back-substitution per step."""
+    RHS and a float64 solve of the BDF2 system per step: one scipy splu
+    factor, or ``solve`` (numpy in, numpy out) where given."""
 
-    def __init__(self, fs):
+    def __init__(self, fs, solve=None):
         import scipy.sparse.linalg as spla
 
         from flowcontrol_tpu_torch.fem.assembly import to_scipy_csr
@@ -663,10 +698,12 @@ class HostF64Loop:
         self.fs = fs
         self.bcs = fs._bcset_perturbation()
         n = fs.space.n_dofs
-        lhs = to_scipy_csr(fs.forms.transient_lhs(2, fs.fields.U0), fs.space.cell_dofs, n)
-        a_bc, _ = self.bcs.eliminate_csr(lhs)
         self.mass = to_scipy_csr(fs.forms.mass_elements(), fs.space.cell_dofs, n)
-        self.lu = spla.splu(a_bc.tocsc())
+        if solve is None:
+            lhs = to_scipy_csr(fs.forms.transient_lhs(2, fs.fields.U0), fs.space.cell_dofs, n)
+            a_bc, _ = self.bcs.eliminate_csr(lhs)
+            solve = spla.splu(a_bc.tocsc()).solve
+        self.solve = solve
         self.dt = fs.params_time.dt
 
     def run(self, steps: int, u_n: np.ndarray, u_nn: np.ndarray) -> np.ndarray:
@@ -674,12 +711,14 @@ class HostF64Loop:
 
         fs, dt = self.fs, self.dt
         u_n, u_nn = u_n.astype(np.float64), u_nn.astype(np.float64)
+        n_n, n_nn = (nonlinear_convection_np(fs.geom, fs.space, u) for u in (u_n, u_nn))
         for _ in range(steps):
             rhs = (2.0 / dt) * (self.mass @ u_n) - (0.5 / dt) * (self.mass @ u_nn)
-            rhs -= 2.0 * nonlinear_convection_np(fs.geom, fs.space, u_n)
-            rhs += nonlinear_convection_np(fs.geom, fs.space, u_nn)
+            rhs -= 2.0 * n_n
+            rhs += n_nn
             rhs[self.bcs.dofs] = 0.0  # perturbation BCs at zero control
-            u_nn, u_n = u_n, self.lu.solve(rhs)
+            u_nn, u_n = u_n, self.solve(rhs)
+            n_nn, n_n = n_n, nonlinear_convection_np(fs.geom, fs.space, u_n)
         return u_n
 
 
@@ -776,7 +815,8 @@ def run_path(fs, counters, u_on=(0.3, -0.2), control=None, steps: int = NUM_STEP
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def accuracy(host, st, carry10, tag: str) -> float:
+def accuracy(host, st, carry10, tag: str, against: str = "host f64 splu",
+             tol: float = FIELD_ERR_TOL) -> float:
     """10 f32 steps on the card from carry10 against the host f64 loop."""
     from flowcontrol_tpu_torch.core.stepper import carry_from_numpy
 
@@ -786,10 +826,10 @@ def accuracy(host, st, carry10, tag: str) -> float:
     carry, _ = st.rollout_open_loop(carry, np.zeros((10, st.n_act)))
     got = carry.u_n.double().cpu().numpy()
     err = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
-    log(f"{tag}: 10-step field error f32 card vs host f64 splu = {err:.3e} "
-        f"(tol {FIELD_ERR_TOL:g}; {time.perf_counter() - t0:.1f} s)")
-    if not err <= FIELD_ERR_TOL:
-        raise AssertionError(f"field error {err:.3e} over {FIELD_ERR_TOL:g}")
+    log(f"{tag}: 10-step field error f32 card vs {against} = {err:.3e} "
+        f"(tol {tol:g}; {time.perf_counter() - t0:.1f} s)")
+    if not err <= tol:
+        raise AssertionError(f"field error {err:.3e} over {tol:g}")
     return err
 
 
@@ -1516,8 +1556,9 @@ def phase_graph_single(fs, st, path: str, tag: str, reps: int = 100) -> dict:
 
 def phase_graph_rollout(st, carry, path: str, tag: str, k_mats=None, y0=None,
                         feedback_sign: float = -1.0, steps: int = BATCH_STEPS - 1) -> dict:
-    """A batched rollout of ``steps`` steps from ``carry`` (past its
-    first step): make_rollout_open_loop (``k_mats`` None, seeded controls)
+    """A rollout of ``steps`` steps from ``carry`` (past its first step;
+    batched, or a single stream): make_rollout_open_loop (``k_mats`` None,
+    seeded controls)
     or make_rollout_closed_loop (controllers ``k_mats`` from ``y0``, fed
     ``feedback_sign`` times y)
     against the eager loop of Stepper.step (and the controller's products):
@@ -1525,11 +1566,12 @@ def phase_graph_rollout(st, carry, path: str, tag: str, k_mats=None, y0=None,
     host launch calls and device kernels per step; device time per step
     from queued CUDA events around a whole rollout, busy share; the graph
     pool's bytes."""
-    batch = carry.u_n.shape[0]
+    lead = tuple(carry.u_n.shape[:-1])
+    batch = lead[0] if lead else 1
     dev = st.device
     if k_mats is None:
         gen = torch.Generator(device=dev).manual_seed(9)
-        u_seq = 0.1 * torch.randn((steps, batch, st.n_act), generator=gen, device=dev,
+        u_seq = 0.1 * torch.randn((steps,) + lead + (st.n_act,), generator=gen, device=dev,
                                   dtype=st.dtype)
         roll = st.make_rollout_open_loop()
 
@@ -1582,7 +1624,7 @@ def phase_graph_rollout(st, carry, path: str, tag: str, k_mats=None, y0=None,
     # the eager rollout's launches would overflow the launch queue behind
     # the sleep: its device time is one eager step's (the controller's
     # products aside)
-    u0 = torch.zeros((batch, st.n_act), dtype=st.dtype, device=dev)
+    u0 = torch.zeros(lead + (st.n_act,), dtype=st.dtype, device=dev)
     dev_ms = {"eager": events_ms(lambda: st.step(carry, u0), reps=2),
               "graph": events_ms(graph_run, reps=1) / steps}
     kind = "open" if k_mats is None else "closed"
@@ -2079,22 +2121,15 @@ DENSE_HOLD = 20e9  # bytes held while phase 32 reads the dense rule a third time
 LQG_STEPS = 6
 
 
-def fused_smem_bytes(mf, rows: int) -> int:
-    """F's dynamic shared memory per block at ``rows`` right-hand sides
-    (``csrc/mf_fused.cu`` ``smem_of``): every stage's descriptor words,
-    16-byte aligned, and one node vector of ``max_front`` floats for each of
-    the accumulator count's rows (1, 2, 4 or 8, the smallest that holds
-    them)."""
-    from flowcontrol_tpu_torch.ops.mf_fused import STAGE_WORDS
-
-    desc = -(-len(mf.stages) * STAGE_WORDS * 8 // 16) * 16
-    return desc + (1 << (rows - 1).bit_length()) * mf.max_front * 4
-
-
 def factor_report(tag: str, st, run: dict) -> None:
     """The multifrontal factor of a new flow: host split, stages, stack
     bytes, max_front and F's grid and shared memory at rows 1 and 8."""
-    from flowcontrol_tpu_torch.ops.mf_fused import F_BLOCK_THREADS, fused_grid, grid_syncs
+    from flowcontrol_tpu_torch.ops.mf_fused import (
+        F_BLOCK_THREADS,
+        fused_grid,
+        fused_smem_bytes,
+        grid_syncs,
+    )
 
     mf = st._solvers[st._order_idx[2]]
     t = mf.timings
@@ -2243,14 +2278,14 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def new_flows(counters, card: str) -> tuple[list, list, dict]:
+def new_flows(counters, card: str, child: FactorChild) -> tuple[list, list, dict]:
     """Phases 23-33 and 45: the lid-driven cavity and the fluidic pinball at
-    their default meshes. Returns kernel S's launches there ([csr_matmul,
-    csr_residual]), their rows of the kernels line and phase 45's result."""
+    their default meshes, their factors streamed from ``child``'s host
+    build. Returns kernel S's launches there ([csr_matmul, csr_residual]),
+    their rows of the kernels line and phase 45's result."""
     from flowcontrol_tpu_torch.core.actuator import CYLINDER_ACTUATION_MODE
     from flowcontrol_tpu_torch.core.controller import Controller
     from flowcontrol_tpu_torch.core.stepper import dense_lu_max_dofs_device
-    from flowcontrol_tpu_torch.models.lidcavity import LidCavityFlowSolver
     from flowcontrol_tpu_torch.models.pinball import PINBALL_LQG_RE100, PinballFlowSolver
 
     dev = torch.device("cuda", 0)
@@ -2258,14 +2293,14 @@ def new_flows(counters, card: str) -> tuple[list, list, dict]:
 
     # ── phase 23: the lid-driven cavity, single stream ───────────────────────
     t0 = time.perf_counter()
-    fl = LidCavityFlowSolver.make_default(Re=LID_RE, num_steps=NUM_STEPS, device="cuda")
+    fl = lid_solver("cuda")
     t_mesh = time.perf_counter() - t0
     if fl.space.n_dofs != LID_NDOFS:
         raise AssertionError(f"lid cavity default mesh has {fl.space.n_dofs} dofs, expected "
                              f"{LID_NDOFS}")
     src, t_base = base_flow(fl)
     fl.initialize_time_stepping()
-    lid = run_path(fl, counters, u_on=(LID_U,))
+    lid = streamed(child, "lidcavity", "phase 23", lambda: run_path(fl, counters, u_on=(LID_U,)))
     stl = lid["st"]
     oil = stl._order_idx[2]
     mfl = stl._solvers[oil]
@@ -2307,10 +2342,7 @@ def new_flows(counters, card: str) -> tuple[list, list, dict]:
 
     # ── phase 27: the pinball, single-stream MIMO closed loop ────────────────
     t0 = time.perf_counter()
-    fp = PinballFlowSolver.make_default(
-        Re=PIN_RE, num_steps=NUM_STEPS, device="cuda",
-        mode_actuation=CYLINDER_ACTUATION_MODE.ROTATION,
-        stepper_options={"force_substructure": True})
+    fp = pinball_solver("cuda")
     t_mesh = time.perf_counter() - t0
     if fp.space.n_dofs != PIN_NDOFS:
         raise AssertionError(f"pinball default mesh has {fp.space.n_dofs} dofs, expected "
@@ -2335,7 +2367,7 @@ def new_flows(counters, card: str) -> tuple[list, list, dict]:
     def lqg(i, y):  # u = +K(y) for LQG_STEPS steps, then the loop is opened
         return k.step(y, dt) if i < LQG_STEPS else np.zeros(3)
 
-    pinr = run_path(fp, counters, control=lqg)
+    pinr = streamed(child, "pinball", "phase 27", lambda: run_path(fp, counters, control=lqg))
     stp = pinr["st"]
     oip = stp._order_idx[2]
     mfp = stp._solvers[oip]
@@ -3899,6 +3931,278 @@ def cache_phase(opts: dict, t_restart: float, k, kx: np.ndarray, y_restart: np.n
     return dict(f=launches[4])
 
 
+# ── The half-million-dof cylinder (phase 46) ─────────────────────────────────
+
+BIG_NDOFS = 506_553  # tools/scale_big.py's mesh at density 30
+BIG_STEPS = 50  # tools/scale_big.py's rollout
+# BLAS and torch threads of the factor's host build, which runs in a child
+# process beside the earlier phases from the top of the run
+BIG_CHILD_THREADS = 3
+BIG_CHILD_TIMEOUT = 900  # seconds phase 46 waits for that build at most
+# the f64 reference's solve: F's f32 solves refined against the f64
+# residual until it is below BIG_REF_RES relative to the right-hand side
+BIG_REF_RES = 1e-12
+BIG_REF_SWEEPS = 12
+BIG_PIN = 1e-4  # the port's f32 rule: the 10-step field error against f64
+
+
+def cavity_solver(device, **kw):
+    """Phase 17's open cavity (the child builds its factor on the host)."""
+    from flowcontrol_tpu_torch.models.cavity import CavityFlowSolver
+
+    return CavityFlowSolver.make_default(Re=CAV_RE, num_steps=NUM_STEPS, device=device, **kw)
+
+
+def lid_solver(device, **kw):
+    """Phase 23's lid-driven cavity."""
+    from flowcontrol_tpu_torch.models.lidcavity import LidCavityFlowSolver
+
+    return LidCavityFlowSolver.make_default(Re=LID_RE, num_steps=NUM_STEPS, device=device, **kw)
+
+
+def pinball_solver(device, **kw):
+    """Phase 27's fluidic pinball (rotation, the multifrontal solve)."""
+    from flowcontrol_tpu_torch.core.actuator import CYLINDER_ACTUATION_MODE
+    from flowcontrol_tpu_torch.models.pinball import PinballFlowSolver
+
+    return PinballFlowSolver.make_default(
+        Re=PIN_RE, num_steps=NUM_STEPS, device=device,
+        mode_actuation=CYLINDER_ACTUATION_MODE.ROTATION,
+        stepper_options={"force_substructure": True}, **kw)
+
+
+# the flows whose BDF2 factors the child builds before phase 46's, in the
+# order the phases take them
+PREBUILT = (("cavity", cavity_solver), ("lidcavity", lid_solver), ("pinball", pinball_solver))
+
+
+def prebuild_factors(cache: Path) -> int:
+    """The child process's work (``python3 chip_smoke.py --prebuild
+    CACHE``): the multifrontal factors of the PREBUILT flows, then phase
+    46's (``tools/scale_big.py`` ``factor``), built on the host (the CPU,
+    f32, the multifrontal solve: 'auto' takes the host LU on the CPU) into
+    the factor cache ``cache``, each
+    announced by a line ``READY <name>: <report>`` once its entries are
+    written."""
+    from flowcontrol_tpu_torch.models.make_baseflow import CYLINDER_BIG_DENSITY
+    from flowcontrol_tpu_torch.solvers import factor_cache
+    from flowcontrol_tpu_torch.tools import scale_big
+
+    os.environ["FLOWCONTROL_TPU_FACTOR_CACHE"] = str(cache)
+    for name, make in PREBUILT:
+        t0 = time.perf_counter()
+        fs = make("cpu", precision="f32", solver_backend="dense_lu")
+        fs.params_solver.stepper_options = {**fs.params_solver.stepper_options,
+                                            "force_substructure": True}
+        src, _ = base_flow(fs)
+        fs.initialize_time_stepping()
+        st = fs.stepper
+        factor_cache.flush()
+        print(f"READY {name}: base flow {src}; {time.perf_counter() - t0:.2f} s in all; "
+              f"{scale_big.factor_report(st)}", flush=True)
+        del fs, st
+        gc.collect()
+    print(f"READY cylinder_big: {scale_big.factor(CYLINDER_BIG_DENSITY, cache)}", flush=True)
+    return 0
+
+
+class FactorChild:
+    """The child process that builds factors on the host beside the phases
+    (:func:`prebuild_factors`: the CPU, BIG_CHILD_THREADS BLAS threads, no
+    card) into the factor cache ``cache``, its output in ``log_path``. A
+    phase takes a factor with :meth:`ready`."""
+
+    def __init__(self, cache: Path, log_path: Path):
+        self.cache, self.log_path = cache, log_path
+        threads = str(BIG_CHILD_THREADS)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=threads,
+                   OPENBLAS_NUM_THREADS=threads, MKL_NUM_THREADS=threads)
+        with open(log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--prebuild", str(cache)],
+                cwd=Path(__file__).resolve().parent, env=env, stdout=out,
+                stderr=subprocess.STDOUT)
+
+    def ready(self, name: str, tag: str) -> str:
+        """Wait for the factor ``name`` (BIG_CHILD_TIMEOUT at most) and
+        return the child's report of it; fails if the child ended without
+        it."""
+        t0 = time.perf_counter()
+        head = f"READY {name}: "
+        while True:
+            lines = self.log_path.read_text().splitlines()
+            found = [line[len(head):] for line in lines if line.startswith(head)]
+            if found:
+                break
+            if self.proc.poll() is not None or time.perf_counter() - t0 > BIG_CHILD_TIMEOUT:
+                for line in lines[-30:]:
+                    log(f"{tag} (host build): {line}")
+                raise AssertionError(f"{tag}: the host build of the {name} factor ended or ran "
+                                     f"past {BIG_CHILD_TIMEOUT} s without it (exit "
+                                     f"{self.proc.poll()})")
+            time.sleep(0.5)
+        log(f"{tag}: the {name} factor built on the host beside the earlier phases "
+            f"({BIG_CHILD_THREADS} threads; waited {time.perf_counter() - t0:.1f} s): {found[0]}")
+        return found[0]
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def streamed(child: FactorChild, name: str, tag: str, run):
+    """``run()`` with the factor cache at the child's directory, once the
+    factor ``name`` is there; fails unless the Stepper streamed it."""
+    child.ready(name, tag)
+    os.environ["FLOWCONTROL_TPU_FACTOR_CACHE"] = str(child.cache)
+    try:
+        out = run()
+    finally:
+        os.environ["FLOWCONTROL_TPU_FACTOR_CACHE"] = "off"
+    st = out["st"]
+    mf = st._solvers[st._order_idx[2]]
+    if mf.loaded_from != "stream":
+        raise AssertionError(f"{tag}: the factor came from {mf.loaded_from!r}, not the host "
+                             f"build's entry")
+    return out
+
+
+class RefinedF64Solve:
+    """``x = A⁻¹ b`` in float64 for the host reference loop: kernel F's f32
+    solve of the factor ``mf``, refined against the f64 residual of ``a64``
+    (A in f64 on the card) until it is below BIG_REF_RES relative to b.
+    Keeps each solve's sweeps and final residual."""
+
+    def __init__(self, a64: torch.Tensor, mf):
+        self.a64, self.mf = a64, mf
+        self.sweeps, self.res = [], []
+
+    def __call__(self, rhs: np.ndarray) -> np.ndarray:
+        b = torch.as_tensor(rhs, dtype=torch.float64, device=self.a64.device)
+        b_norm = float(torch.linalg.vector_norm(b))
+        x = self.mf.solve(b.float()).double()
+        for k in range(BIG_REF_SWEEPS + 1):
+            r = b - torch.mv(self.a64, x)
+            res = float(torch.linalg.vector_norm(r)) / b_norm
+            if res <= BIG_REF_RES:
+                break
+            if k == BIG_REF_SWEEPS:
+                raise AssertionError(f"the f64 reference's solve stalled at a relative residual "
+                                     f"{res:.3e} after {k} sweeps")
+            x += self.mf.solve(r.float()).double()
+        self.sweeps.append(k)
+        self.res.append(res)
+        return x.cpu().numpy()
+
+
+def big_cylinder_phase(counters, card: str, child: FactorChild) -> dict:
+    """Phase 46: the half-million-dof cylinder (``tools/scale_big.py``'s
+    mesh at density 30) on a card holding nothing of the earlier phases.
+    Its BDF2 factor was built on the host by ``child`` while the earlier
+    phases ran; this phase waits for it, builds the flow through the tool
+    (the committed base flow, or a failure), streams the factor's derived
+    entry to the card ('auto' must take the multifrontal solve), runs
+    BIG_STEPS ``fs.step`` calls (exact K1 and F launches, the 10-step field
+    error against an f64 reference), the tool's two rollouts (the first
+    captures; exact launches in the second), the single stream graph
+    against eager, F against its plain version and the per-stage sweep at
+    this factor, and K1 at this mesh. Returns the kernels line's
+    figures."""
+    from flowcontrol_tpu_torch.core.stepper import dense_lu_max_dofs_device
+    from flowcontrol_tpu_torch.models.baseflows import committed_baseflow, mesh_checksum
+    from flowcontrol_tpu_torch.models.make_baseflow import CYLINDER_BIG_DENSITY
+    from flowcontrol_tpu_torch.ops.mf_fused import fused_smem_bytes, fused_smem_limit
+    from flowcontrol_tpu_torch.tools import scale_big
+
+    tag = "phase 46"
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fs = scale_big.build(CYLINDER_BIG_DENSITY, "dense_lu", "f32", num_steps=BIG_STEPS,
+                         device="cuda")
+    n = fs.space.n_dofs
+    if n != BIG_NDOFS:
+        raise AssertionError(f"{tag}: the mesh has {n} dofs, expected {BIG_NDOFS}")
+    path = committed_baseflow(fs)
+    if path is None:
+        raise AssertionError(f"{tag}: no committed base flow matches the mesh (checksum "
+                             f"{mesh_checksum(fs.mesh)[:12]})")
+    fs.load_steady_state(path)
+    fs.initialize_time_stepping()
+    t_mesh = time.perf_counter() - t0
+    log(f"{tag}: mesh {fs.mesh.num_cells} cells, {n} dofs ({fs.space.n_vel_dofs} velocity + "
+        f"{fs.space.n_pressure_dofs} pressure), checksum {mesh_checksum(fs.mesh)[:12]}; base "
+        f"flow {path.name} (max|U0| {np.abs(fs.fields.U0).max():.6f}); mesh, spaces, base flow "
+        f"and initial state {t_mesh:.2f} s; the dense rule allows {dense_lu_max_dofs_device(dev)} "
+        f"dofs on this card")
+    big = streamed(child, "cylinder_big", tag, lambda: run_path(fs, counters, steps=BIG_STEPS))
+    rc = child.proc.wait(timeout=BIG_CHILD_TIMEOUT)  # its last factor: the child ends
+    if rc != 0:
+        raise AssertionError(f"{tag}: the host build ended with {rc}")
+    st = big["st"]
+    oi = st._order_idx[2]
+    mf = st._solvers[oi]
+    factor_report(tag, st, big)
+    solves = (1 + st.BORROW_ITERS) + (BIG_STEPS - 1) * (1 + st._refine.get(oi, 0))
+    log(f"{tag}: factor {mf.loaded_from} ({mf.timings['load']:.2f} s to stream "
+        f"{mf.factor_bytes / 1e9:.4f} GB of stacks; factorization+init_carry "
+        f"{big['t_factor']:.2f} s); {BIG_STEPS} fs.step calls, single-stream {big['sps']:.2f} "
+        f"steps/s over the last {BIG_STEPS - CTRL_STEPS} ({card}); y[-1] = "
+        f"{big['ys'][-1].tolist()}, dE[-1] = {big['de'][-1]:.6e}")
+    for rows in (1, 8):
+        need, limit = fused_smem_bytes(mf, rows), fused_smem_limit(rows)
+        log(f"{tag}: F at {rows} row(s) asks {need} bytes of shared memory a block of the "
+            f"{limit} this card allows ({need / limit:.3f})")
+    if st._solver_kinds != ["borrowed", "multifrontal"] or not mf.takes_fused(1):
+        raise AssertionError(f"{tag}: solve kinds {st._solver_kinds}")
+    expect_launches(tag, big["launches"], [BIG_STEPS + 1, 0, 0, 0, solves, 0, 0],
+                    f"{solves} solves, each one launch of F")
+
+    # the f32 pin: 10 steps from the state after CTRL_STEPS against an f64
+    # reference whose solves are F's refined to an f64 residual below
+    # BIG_REF_RES (no second factorization: a host f64 splu of this matrix
+    # takes minutes and ~9 GB)
+    ref = RefinedF64Solve(st._dev["a_refine"][oi], mf)
+    accuracy(HostF64Loop(fs, solve=ref), st, big["carry10"], tag,
+                   against=f"f64 (F refined to an f64 residual below {BIG_REF_RES:g})",
+                   tol=BIG_PIN)
+    log(f"{tag}: the f64 reference's solves: sweeps {ref.sweeps}, relative f64 residuals "
+        f"{max(ref.res):.3e} at most")
+
+    # the tool's rollout: BIG_STEPS steps at u = 0, twice (the first pays
+    # for the capture); exact launches in the second
+    roll = st.make_rollout_open_loop()
+    u_seq = torch.zeros((BIG_STEPS, st.n_act), dtype=st.dtype, device=dev)
+    carry = fs._carry
+    runs = []
+    for _ in range(2):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = roll(carry, u_seq)
+        y = out.y.double().cpu().numpy()
+        runs.append((time.perf_counter() - t0, [c.launches for c in counters], y))
+    (t_first, first, _), (t_replay, replay, y) = runs
+    per_step = 1 + st._refine.get(oi, 0)
+    log(f"{tag}: the tool's rollout, {BIG_STEPS} steps at u = 0: first run (warm-up and "
+        f"capture) {t_first:.2f} s, launches {first}; replay {BIG_STEPS / t_replay:.1f} steps/s "
+        f"({card}); y[-1] = {y[-1].tolist()}, bitwise the first run's: "
+        f"{bool(np.array_equal(y, runs[0][2]))}")
+    expect_launches(tag, replay, [BIG_STEPS, 0, 0, 0, BIG_STEPS * per_step, 0, 0],
+                    f"K1 once a step, F {per_step} a step")
+    if not (np.isfinite(y).all() and np.array_equal(y, runs[0][2])):
+        raise AssertionError(f"{tag}: the rollout's y is not finite or differs between runs")
+    phase_graph_rollout(st, carry, "multifrontal", f"{tag}g", steps=BIG_STEPS)
+
+    f_big = phase_fused(mf, tag)
+    k1_big = phase_kernel(fs.space, fs.geom, dev, widths=(1,), tag=tag)
+    log(f"{tag}: the phase took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return dict(n=n, f=f_big, k1=k1_big,
+                launches=[a + b for a, b in zip(big["launches"], replay)])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
@@ -3908,19 +4212,27 @@ def main() -> int:
     # that phase 6 builds cold (each cold build costs ~20 s; the run holds
     # its time limit with these three spared)
     factors = Path(tempfile.mkdtemp(prefix="chip_smoke_factors_"))
+    # the factors of phases 17, 23, 27 and 46 are built on the host from the
+    # start, beside the other phases, into a cache directory of their own
+    # (phase 43 copies phase 6's)
+    prebuilt = Path(tempfile.mkdtemp(prefix="chip_smoke_prebuilt_"))
+    child_log = prebuilt.with_name(prebuilt.name + ".log")
+    child = FactorChild(prebuilt, child_log)
     try:
-        return run_phases(factors)
+        return run_phases(factors, child)
     finally:
-        shutil.rmtree(factors, ignore_errors=True)
+        child.stop()
+        for d in (factors, prebuilt):
+            shutil.rmtree(d, ignore_errors=True)
+        child_log.unlink(missing_ok=True)
 
 
-def run_phases(factors: Path) -> int:
+def run_phases(factors: Path, child: FactorChild) -> int:
     """Every phase; ``factors``: the factor cache directory phase 6 writes
-    and phases 38, 40 and 43 stream."""
+    and phases 38, 40 and 43 stream; ``child``: the host build of the
+    factors phases 17, 23, 27 and 46 stream."""
     import flowcontrol_tpu_torch.solvers.multifrontal as mf_module
-    from flowcontrol_tpu_torch.models.cavity import CavityFlowSolver
     from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
-    from flowcontrol_tpu_torch.ops.cuda_build import build_all
     from flowcontrol_tpu_torch.ops.mf_fused import (
         F_BLOCK_THREADS,
         MF_FUSED_KERNEL,
@@ -3953,21 +4265,34 @@ def run_phases(factors: Path) -> int:
     log(f"phase 1: nvidia-smi: {card}")
     log(f"phase 1: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {kind}, count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    build_all([NL_KERNEL, MF_KERNELS, TRISOLVE_KERNEL, MF_FUSED_KERNEL, SPMM_KERNEL])
-    log(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s wall (parallel nvcc)")
-    for name, lib in (("K1", NL_KERNEL), ("K2+P1", MF_KERNELS), ("K3", TRISOLVE_KERNEL),
-                      ("F+P2+P3+P4", MF_FUSED_KERNEL), ("S", SPMM_KERNEL)):
-        log(f"phase 1: {name} built from {lib.source.name} in {lib.build_seconds:.2f} s "
-            f"-> {lib.library_path().name}")
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"phase 1: ptxas: {line.strip()}")
-    for rows in (1, 2, 4, 8):
-        g = fused_grid(rows)
-        log(f"phase 1: F's cooperative grid for {rows} right-hand side(s), node vectors of "
-            f"1536 floats and 24 stages: {g['blocks']} blocks of {F_BLOCK_THREADS} threads "
-            f"({g['per_sm']} per SM x {g['sms']} SMs)")
+    # every kernel's nvcc starts now; phases 2-5g need K1 alone, so the
+    # others (F's library takes ~100 s) build behind them, until phase 6
+    t_build = time.perf_counter()
+    kernels = (("K1", NL_KERNEL), ("K2+P1", MF_KERNELS), ("K3", TRISOLVE_KERNEL),
+               ("F+P2+P3+P4", MF_FUSED_KERNEL), ("S", SPMM_KERNEL))
+    pool = ThreadPoolExecutor(max_workers=len(kernels))
+    builds = [pool.submit(lib.get) for _, lib in kernels]
+    builds[0].result()
+    log(f"phase 1: K1 built in {time.perf_counter() - t_build:.2f} s wall; the other kernels "
+        f"build in the background (parallel nvcc) while phases 2-5g run")
+
+    def kernels_built():
+        for f in builds:
+            f.result()
+        pool.shutdown()
+        log(f"phase 1: kernels built {time.perf_counter() - t_build:.2f} s after their nvcc "
+            f"started (parallel, beside phases 2-5g)")
+        for name, lib in kernels:
+            log(f"phase 1: {name} built from {lib.source.name} in {lib.build_seconds:.2f} s "
+                f"-> {lib.library_path().name}")
+            for line in lib.build_log.splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log(f"phase 1: ptxas: {line.strip()}")
+        for rows in (1, 2, 4, 8):
+            g = fused_grid(rows)
+            log(f"phase 1: F's cooperative grid for {rows} right-hand side(s), node vectors of "
+                f"1536 floats and 24 stages: {g['blocks']} blocks of {F_BLOCK_THREADS} threads "
+                f"({g['per_sm']} per SM x {g['sms']} SMs)")
 
     # ── phase 3 set-up (mesh) first: phase 2 runs on the same mesh ───────────
     t0 = time.perf_counter()
@@ -4026,6 +4351,7 @@ def run_phases(factors: Path) -> int:
     graphs = {"cylinder dense B=1": phase_graph_single(fs, st, "dense", "phase 5g")}
 
     # ── phase 6: the multifrontal main path ──────────────────────────────────
+    kernels_built()
     del st, dense["st"]
     fs._stepper = fs._carry = fs._step_compiled = None  # the dense factor leaves the card
     free_card()
@@ -4209,11 +4535,11 @@ def run_phases(factors: Path) -> int:
 
     # ── phase 17: the open cavity, single stream ─────────────────────────────
     t0 = time.perf_counter()
-    fc = CavityFlowSolver.make_default(Re=CAV_RE, num_steps=NUM_STEPS, device="cuda")
+    fc = cavity_solver("cuda")
     t_mesh_c = time.perf_counter() - t0
     base_src, t_base_c = base_flow(fc)
     fc.initialize_time_stepping()
-    cav = run_path(fc, counters, u_on=(CAV_U,))
+    cav = streamed(child, "cavity", "phase 17", lambda: run_path(fc, counters, u_on=(CAV_U,)))
     stc = cav["st"]
     oic = stc._order_idx[2]
     mfc = stc._solvers[oic]
@@ -4315,7 +4641,7 @@ def run_phases(factors: Path) -> int:
         del r["carry"], r["y_last"]
     del r
     free_card()
-    s_new, new_rows, pin_fb = new_flows(counters, card)
+    s_new, new_rows, pin_fb = new_flows(counters, card, child)
     s_launches = [s_launches[0] + s_new[0], s_launches[1] + s_new[1]]
 
     # ── phases 34-36: the analysis path on a card holding nothing else ──────
@@ -4340,8 +4666,15 @@ def run_phases(factors: Path) -> int:
     shard = sharded_phase(u0_cyl, p0_cyl, host, card, factors)
     s_launches = [s_launches[0] + shard["batch"][3], s_launches[1] + shard["batch"][4]]
 
+    # ── phase 46: the half-million-dof cylinder, on a card holding nothing
+    # else, its factor streamed from the host build that ran beside phases
+    # 1-43
+    free_card()
+    huge = big_cylinder_phase(counters, card, child)
+
     src = "flowcontrol_tpu_torch/csrc/"
-    f_launches = mfp["launches"][4] + cav["launches"][4] + cav_fb["launches"][4] + cached["f"]
+    f_launches = (mfp["launches"][4] + cav["launches"][4] + cav_fb["launches"][4] + cached["f"]
+                  + huge["launches"][4])
     k2_cyl_launches = open_mf["launches"][1] + closed_mf["launches"][1]
     k2_launches = k2_cyl_launches + open_c["launches"][1]
     p1_cyl_launches = open_mf["launches"][2] + closed_mf["launches"][2]
@@ -4395,6 +4728,12 @@ def run_phases(factors: Path) -> int:
             "flowcontrol_tpu/solvers/multifrontal.py:1202",
             cav["launches"][4] + cav_fb["launches"][4], f_cav, None, sweep_ms=f_cav["sweep_ms"],
             phase44_launches=cav_fb["launches"][4]),
+        kernel_row(f"F multifrontal_solve_fused cylinder n={huge['n']}", src + "mf_fused.cu",
+            "flowcontrol_tpu/solvers/multifrontal.py:1202", huge["launches"][4], huge["f"], None,
+            sweep_ms=huge["f"]["sweep_ms"], phase46_launches=huge["launches"][4]),
+        kernel_row(f"K1 nl_convection cylinder n={huge['n']}", src + "nl_convection.cu",
+            "flowcontrol_tpu/ops/pallas_nl.py:136", huge["launches"][0], huge["k1"], None,
+            phase46_launches=huge["launches"][0]),
         # P2-P4 run on the main path as device functions inside every F
         # launch; their times are their own kernels' at the probe's shapes
         kernel_row("P2 take_along_axis_lanes", src + "mf_fused.cu", probe_src + ":65", f_launches,
@@ -4432,4 +4771,6 @@ def run_phases(factors: Path) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--prebuild"]:
+        sys.exit(prebuild_factors(Path(sys.argv[2])))
     sys.exit(main())

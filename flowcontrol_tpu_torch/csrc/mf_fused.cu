@@ -656,6 +656,23 @@ extern "C" int mf_fused_grid(int rows, int ld, int n_stages, int* blocks, int* p
   return (int)fused_grid(rows, ld, n_stages, blocks, per_sm, sms);
 }
 
+// The most dynamic shared memory one F block of the instance for `rows`
+// right-hand sides may request on the current device: the opt-in less the
+// instance's static shared memory.
+extern "C" int mf_fused_smem_limit(int rows, long long* bytes) {
+  if (rows < 1 || rows > kMaxRows) return (int)cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kernel_of(instance_of(rows)));
+  if (e != cudaSuccess) return (int)e;
+  *bytes = (long long)optin - (long long)fa.sharedSizeBytes;
+  return (int)cudaSuccess;
+}
+
 // desc (n_stages, stage_words) int64; stacks, bd, inbox: the factor's flat
 // arrays; perm (total + 1) int64; b and out (rows, n) f32 contiguous;
 // scratch x and z (rows, zs) and buf (rows, bs) f32 with zs >= total + 1,

@@ -41,6 +41,8 @@ def default_cylinder_mesh(**kwargs):
 class CylinderFlowSolver(FlowSolver):
     """Flow past a cylinder. Proposed Re=100."""
 
+    BASEFLOW_NAME = "cylinder"
+
     def _make_boundaries(self) -> dict:
         """(ref: cylinderflowsolver.py:20-88) — later entries overwrite
         earlier ones on shared facets, matching dolfin marking order."""

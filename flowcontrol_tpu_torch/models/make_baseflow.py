@@ -1,7 +1,7 @@
 """Compute a flow's base flow at its generated default mesh on the host and
 commit it.
 
-    python -m flowcontrol_tpu_torch.models.make_baseflow {cavity,lidcavity,pinball} [--out DIR]
+    python -m flowcontrol_tpu_torch.models.make_baseflow {cavity,cylinder_big,lidcavity,pinball} [--out DIR]
 
 Builds the flow's default solver on the CPU and runs its recipe in float64:
 
@@ -19,7 +19,11 @@ Builds the flow's default solver on the CPU and runs its recipe in float64:
   near the Hopf (Re_c ≈ 7700);
 - ``pinball`` (fluidic pinball, Re=100, rotation actuation): Picard
   (``max_iter=15, tol=1e-7``), then Newton (``max_iter=10``) from the
-  Picard field (``examples/run_pinball_feedback.py``).
+  Picard field (``examples/run_pinball_feedback.py``);
+- ``cylinder_big`` (the half-million-dof cylinder, Re=100, the graded mesh
+  of ``tools/scale_big.py`` at density 30: 506,553 dofs): Picard
+  (``max_iter=4``), then Newton (``max_iter=8``) from the Picard field, the
+  JAX package's ``tools/scale_big.py`` recipe.
 
 It prints the seconds of each stage and the final steady residual, and
 writes ``<flow>_re<Re>_n<dofs>.npz`` (U0, P0 and the mesh's checksum) into
@@ -143,6 +147,39 @@ def pinball(path_out) -> tuple:
     return fs, stages
 
 
+#: the half-million-dof cylinder's mesh density (506,553 dofs)
+CYLINDER_BIG_DENSITY = 30.0
+
+
+def cylinder_big_mesh_kwargs(density: float) -> dict:
+    """The graded cylinder mesh of ``tools/scale_big.py`` at ``density``:
+    dofs grow ~density^2 (3 -> 8,136, 30 -> 506,553)."""
+    return dict(yinf=10.0, n1=density, n2=density / 2.0, n3=density / 5.5,
+                segments=int(24 * density))
+
+
+def cylinder_big_steady(fs, stages: list) -> None:
+    """The half-million-dof cylinder's recipe on ``fs``: Picard (4), then
+    Newton (8) from the Picard field (the JAX tool's ``:66-71``)."""
+    _timed(stages, "Picard", lambda: fs.compute_steady_state(
+        u_ctrl=[0.0, 0.0], method="picard", max_iter=4))
+    _timed(stages, "Newton", lambda: fs.compute_steady_state(
+        u_ctrl=[0.0, 0.0], method="newton", max_iter=8, initial_guess=fs.fields.UP0))
+
+
+def cylinder_big(path_out, density: float = CYLINDER_BIG_DENSITY) -> tuple:
+    from flowcontrol_tpu_torch.models.cylinder import CylinderFlowSolver
+
+    t0 = time.perf_counter()
+    fs = CylinderFlowSolver.make_default(
+        Re=100, num_steps=1, save_every=0, verbose=1, path_out=path_out,
+        solver_backend="host_lu", precision="f64", device="cpu",
+        mesh_kwargs=cylinder_big_mesh_kwargs(density))
+    stages = [("mesh", time.perf_counter() - t0)]
+    cylinder_big_steady(fs, stages)
+    return fs, stages
+
+
 def continuation_schedule(re_lo: float, re: float) -> list:
     """The Reynolds numbers Newton visits from ``re_lo`` up to ``re``."""
     return sorted({r for r in (*PINBALL_CONTINUATION, re) if re_lo < r <= re})
@@ -199,7 +236,8 @@ def pinball_baseflow(fs, out_dir) -> str:
     return how
 
 
-RECIPES = {"cavity": cavity, "lidcavity": lidcavity, "pinball": pinball}
+RECIPES = {"cavity": cavity, "cylinder_big": cylinder_big, "lidcavity": lidcavity,
+           "pinball": pinball}
 
 
 def main(argv=None) -> int:

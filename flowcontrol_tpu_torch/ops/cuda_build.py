@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -66,6 +67,7 @@ class CudaLibrary:
     ``argtypes``/``restype``. After the first call, ``build_seconds`` is the
     compile time (0.0 when a built library was reused) and ``build_log``
     holds nvcc's output (``-Xptxas=-v``: registers, shared memory, spills).
+    Threads may call :meth:`get` at once: one builds, the others wait.
     """
 
     def __init__(self, name: str, source: str, declare):
@@ -73,6 +75,7 @@ class CudaLibrary:
         self.source = CSRC_DIR / source
         self._declare = declare
         self._lib = None
+        self._lock = threading.Lock()
         self.build_seconds: float | None = None
         self.build_log = ""
 
@@ -97,25 +100,15 @@ class CudaLibrary:
         os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
 
     def get(self) -> ctypes.CDLL:
-        if self._lib is None:
-            out = self.library_path()
-            if out.exists():
-                self.build_seconds = 0.0
-            else:
-                self._build(out)
-            lib = ctypes.CDLL(str(out))
-            self._declare(lib)
-            self._lib = lib
+        with self._lock:
+            if self._lib is None:
+                out = self.library_path()
+                if out.exists():
+                    self.build_seconds = 0.0
+                else:
+                    self._build(out)
+                lib = ctypes.CDLL(str(out))
+                self._declare(lib)
+                self._lib = lib
         return self._lib
 
-
-def build_all(libraries) -> None:
-    """Build and load several libraries at once: one nvcc process per
-    source, all started together (each waits in ``subprocess.run``, which
-    releases the GIL)."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    libraries = list(libraries)
-    with ThreadPoolExecutor(max_workers=max(1, len(libraries))) as pool:
-        for f in [pool.submit(lib.get) for lib in libraries]:
-            f.result()

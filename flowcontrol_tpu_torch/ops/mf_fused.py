@@ -32,6 +32,7 @@ in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -77,6 +78,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mf_fused_solve_f32.restype = i32
     lib.mf_fused_grid.argtypes = [i32, i32, i32] + [ctypes.POINTER(ctypes.c_int)] * 3
     lib.mf_fused_grid.restype = i32
+    lib.mf_fused_smem_limit.argtypes = [i32, ctypes.POINTER(ctypes.c_longlong)]
+    lib.mf_fused_smem_limit.restype = i32
     lib.mf_take_along_lanes_f32.argtypes = [p, i64, p, i32, i32, p, p]
     lib.mf_take_along_lanes_f32.restype = i32
     lib.mf_dynamic_slice_f32.argtypes = [p, p, i32, p, p]
@@ -114,6 +117,31 @@ def fused_grid(rows: int = 1, width: int = 1536, n_stages: int = 24) -> dict:
     _raise_on(lib.mf_fused_grid(rows, width, n_stages, *[ctypes.byref(v) for v in vals]),
               "F occupancy query")
     return dict(zip(("blocks", "per_sm", "sms"), (v.value for v in vals)))
+
+
+def fused_smem_bytes(mf, rows: int) -> int:
+    """F's dynamic shared memory per block at ``rows`` right-hand sides
+    (``csrc/mf_fused.cu`` ``smem_of``): every stage's descriptor words,
+    16-byte aligned, and one node vector of ``max_front`` floats for each of
+    the accumulator count's rows (1, 2, 4 or 8, the smallest that holds
+    them)."""
+    desc = -(-len(mf.stages) * STAGE_WORDS * 8 // 16) * 16
+    return desc + (1 << (rows - 1).bit_length()) * mf.max_front * 4
+
+
+def fused_smem_limit(rows: int) -> int:
+    """The most dynamic shared memory an F block for ``rows`` right-hand
+    sides may request on the current device (the opt-in less the kernel
+    instance's static shared memory); asked once per device and width."""
+    return _smem_limit(torch.cuda.current_device(), rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(device: int, rows: int) -> int:
+    val = ctypes.c_longlong(0)
+    _raise_on(MF_FUSED_KERNEL.get().mf_fused_smem_limit(rows, ctypes.byref(val)),
+              "F shared-memory query")
+    return int(val.value)
 
 
 def phase_labels(mf) -> list[tuple[str, tuple]]:
@@ -229,6 +257,11 @@ def _solve_cuda(mf, b: torch.Tensor, trace: torch.Tensor | None = None) -> torch
         raise ValueError(f"b is on {b.device}, the factor on {dev}")
     if not 0 < rows <= F_MAX_ROWS:
         raise ValueError(f"kernel F takes 1 to {F_MAX_ROWS} right-hand sides, got {rows}")
+    need, limit = fused_smem_bytes(mf, rows), fused_smem_limit(rows)
+    if need > limit:
+        raise ValueError(f"kernel F needs {need} bytes of shared memory a block for {rows} "
+                         f"row(s) of this factor ({len(mf.stages)} stages, max_front "
+                         f"{mf.max_front}); the card allows {limit}")
     n, total = mf.n, mf.total_slots
     bb = b.reshape(rows, n).to(torch.float32).contiguous()
     # scratch, allocated here and never by the kernel: x, the stages' xe

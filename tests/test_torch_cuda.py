@@ -61,7 +61,12 @@ package, so it also runs on a GPU machine without them:
   4 and 8: relative error <= 1e-5, two calls bitwise equal, one counted
   launch per solve; ``MultifrontalLU.solve`` takes F up to
   ``FUSED_MAX_ROWS`` rows and the per-stage sweep past that; F refuses 9
-  rows.
+  rows. On a factor of 39 stages (the half-million-dof cylinder's graded
+  mesh at density 4, small leaves and a cheap stage price; 60 grid syncs),
+  rows 1 and 8: bitwise the per-stage sweep, within 1e-5 of the plain
+  version. F's shared memory at 8 rows within the card's opt-in there,
+  and a request past it (``max_front`` raised on a copy) refused with
+  ``ValueError`` before any launch.
 - P2, P3 and P4 (the same source) at the probe's shapes and at one other:
   bitwise equal to their plain versions, one counted launch per call.
 - Kernel S (``csrc/csr_spmm.cu``, the batched step's sparse products)
@@ -119,7 +124,8 @@ package, so it also runs on a GPU machine without them:
   within 5e-4.
 - The factor cache: a small cavity's factor built cold on the card, then
   streamed back from its derived entry: every device array and the F and
-  sweep solves bitwise equal. The knobs ``inbox='full'``,
+  sweep solves bitwise equal; the same factor built on the CPU and
+  streamed to the card, bitwise a card build's. The knobs ``inbox='full'``,
   ``FC_MF_PACK=bucket`` and ``trim=False``: F (rows 1, 8) and the sweep
   (B = 64) within 1e-5 of F's plain walk.
 - Multi-GPU (``parallel/``, worlds spawned from
@@ -1483,6 +1489,98 @@ def test_torch_cuda_factor_cache_stream_bitwise(cuda, tmp_path, monkeypatch):
     for rows in (1, 64):
         b = torch.as_tensor(rng.standard_normal((rows, cold.n)), dtype=torch.float32, device=cuda)
         assert torch.equal(warm.solve(b), cold.solve(b)), rows
+
+
+@pytest.mark.cuda
+def test_torch_cuda_factor_built_on_the_host_streams_bitwise(cuda, tmp_path, monkeypatch):
+    """A small cavity's factor (f32) built on the CPU into a cache
+    directory (as ``tools/scale_big.py factor`` builds the half-million-dof
+    one beside ``chip_smoke.py``'s other phases), then streamed to the
+    card: every device array, F's solve (rows 1) and the sweep's (B = 64)
+    bitwise equal to a factor built cold on the card."""
+    from flowcontrol_tpu_torch.solvers import factor_cache
+
+    a_bc, coords = _cavity_system(tmp_path / "s")
+    monkeypatch.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", str(tmp_path / "cache"))
+    host = MultifrontalLU(a_bc, coords, "cpu", dtype=torch.float32, leaf_max=300)
+    factor_cache.flush()
+    streamed = MultifrontalLU(a_bc, coords, cuda, dtype=torch.float32, leaf_max=300)
+    monkeypatch.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", "off")
+    cold = MultifrontalLU(a_bc, coords, cuda, dtype=torch.float32, leaf_max=300)
+    assert (host.loaded_from, streamed.loaded_from, cold.loaded_from) == (
+        "build", "stream", "build")
+    for k in ("perm", "ipos", "flat_stacks", "flat_bd", "flat_inbox", "desc", "p1_tables",
+              "p1_desc"):
+        assert torch.equal(getattr(streamed, k), getattr(cold, k)), k
+    assert streamed.solve_err == cold.solve_err
+    rng = np.random.default_rng(2)
+    for rows in (1, 64):
+        b = torch.as_tensor(rng.standard_normal((rows, cold.n)), dtype=torch.float32, device=cuda)
+        assert torch.equal(streamed.solve(b), cold.solve(b)), rows
+
+
+@pytest.fixture(scope="module")
+def deep_factor():
+    """A factor with more stages than the open cavity's 24: the
+    half-million-dof cylinder's graded mesh at density 4 (12,638 dofs,
+    ``tools/scale_big.py``), leaves of at most 256 dofs and the DP repack's
+    price of a stage at 0.05 MB (39 stages, 60 grid syncs, where the
+    default knobs give 6 stages); f32 on the card, or None without one."""
+    if not torch.cuda.is_available():
+        return None
+    from flowcontrol_tpu_torch.models.make_baseflow import cylinder_big_mesh_kwargs
+
+    fs = CylinderFlowSolver.make_default(mesh=cylinder_mesh(**cylinder_big_mesh_kwargs(4.0)),
+                                         device="cpu")
+    lhs = fs.forms.transient_lhs(2, fs._default_steady_state_initial_guess())
+    a_bc, _ = fs._bcset_perturbation().eliminate_csr(
+        to_scipy_csr(lhs, fs.space.cell_dofs, fs.space.n_dofs))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("FC_MF_PACK_LAM_MB", "0.05")
+        return MultifrontalLU(a_bc, mixed_dof_coordinates(fs.space), torch.device("cuda", 0),
+                              dtype=torch.float32, leaf_max=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8])
+def test_torch_cuda_f_many_stages_matches_plain_and_sweep(cuda, deep_factor, rows):
+    mf = deep_factor
+    assert len(mf.stages) > 24 and mf_fused.grid_syncs(mf) > 36
+    b = torch.as_tensor(np.random.default_rng(rows).standard_normal((rows, mf.n)),
+                        dtype=torch.float32, device=cuda)
+    f = mf_fused.multifrontal_solve_fused
+    before = f.launches
+    got = f(mf, b)
+    ref = mf_fused.multifrontal_solve_fused_plain(mf, b)
+    sweep = multifrontal_solve(mf, b)
+    torch.cuda.synchronize()
+    assert f.launches == before + 1
+    assert torch.equal(got, sweep)  # the sweep's summation order, stage by stage
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_torch_cuda_f_shared_memory_refused_past_the_opt_in(cuda, deep_factor):
+    """F's request at 8 rows stays within the card's opt-in on a real
+    factor; a factor whose node vectors would not fit 8 rows (its
+    ``max_front`` raised on a copy) is refused with ``ValueError`` before
+    any launch, and still solves 1 row, bitwise the factor's own F."""
+    import copy
+
+    mf = deep_factor
+    assert mf_fused.fused_smem_bytes(mf, 8) <= mf_fused.fused_smem_limit(8)
+    wide = copy.copy(mf)
+    limit = mf_fused.fused_smem_limit(8)
+    wide.max_front = -(-(limit // (8 * 4) + 1) // 8) * 8
+    assert mf_fused.fused_smem_bytes(wide, 8) > limit >= mf_fused.fused_smem_bytes(wide, 1)
+    b = torch.as_tensor(np.random.default_rng(3).standard_normal((8, mf.n)),
+                        dtype=torch.float32, device=cuda)
+    f = mf_fused.multifrontal_solve_fused
+    before = f.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        f(wide, b)
+    assert f.launches == before
+    assert torch.equal(f(wide, b[:1]), f(mf, b[:1]))
 
 
 @pytest.mark.cuda

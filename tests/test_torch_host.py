@@ -193,6 +193,7 @@ def test_torch_import_leaves_jax_out():
         "        'flowcontrol_tpu_torch.tools.pinball_design_search',\n"
         "        'flowcontrol_tpu_torch.tools.bifurcation_sweep',\n"
         "        'flowcontrol_tpu_torch.tools.lidcavity_hopf_sweep',\n"
+        "        'flowcontrol_tpu_torch.tools.scale_big',\n"
         "        'flowcontrol_tpu_torch.examples.run_pinball_feedback'} <= set(names), names\n"
         "assert len(names) >= 70, len(names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
